@@ -27,8 +27,8 @@ _CSRC = os.path.join(_DIR, "csrc")
 SOURCES = ("scores.cu", "fill.cu", "chase.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 KERNELS = ("s_prep", "s", "fill", "chase")
 LAUNCHES = {k: 0 for k in KERNELS}
@@ -52,7 +52,7 @@ def _nvcc() -> str:
 
 
 def so_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for name in SOURCES + HEADERS:
         with open(os.path.join(_CSRC, name), "rb") as f:
             h.update(name.encode() + f.read())
@@ -61,23 +61,42 @@ def so_path() -> str:
 
 def build() -> str:
     """Compile the kernels unless the hashed library exists; returns its path.
-    Records the build seconds and nvcc's register report in ``build_info``."""
+    One nvcc per source, all started together, then one link.  Records the
+    build seconds and nvcc's register report in ``build_info``."""
     so = so_path()
     if os.path.exists(so):
         build_info.setdefault("seconds", 0.0)
         return so
     os.makedirs(os.path.dirname(so), exist_ok=True)
-    tmp = "%s.tmp.%d" % (so, os.getpid())
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(_CSRC, s) for s in SOURCES)]
+    nvcc = _nvcc()
+    tag = "%s.tmp.%d" % (so, os.getpid())
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed (%d):\n%s" % (proc.returncode,
-                                                      proc.stderr[-4000:]))
-    os.replace(tmp, so)
+    objs = ["%s.%s.o" % (tag, src) for src in SOURCES]
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(_CSRC, src)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for src, obj in zip(SOURCES, objs)]
+    try:
+        logs = [p.communicate(timeout=600) for p in procs]
+        for src, p, (_, err) in zip(SOURCES, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError("nvcc failed on %s (%d):\n%s"
+                                   % (src, p.returncode, err[-4000:]))
+        link = subprocess.run([nvcc, *LINK_FLAGS, "-o", tag, *objs],
+                              capture_output=True, text=True, timeout=600)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed (%d):\n%s"
+                               % (link.returncode, link.stderr[-4000:]))
+        os.replace(tag, so)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     build_info["seconds"] = time.perf_counter() - t0
-    build_info["ptxas"] = proc.stderr
+    build_info["ptxas"] = "".join(err for _, err in logs)
     return so
 
 
@@ -91,7 +110,9 @@ def lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         L.pgm_s_prep.argtypes = [p, p, p, i, i, i, p, p, p]
         L.pgm_s.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, f, f, p, p]
-        L.pgm_fill.argtypes = ([p] * 7 + [i] * 7 + [p] * 7 + [p])
+        L.pgm_fill.argtypes = [p] * 7 + [i] * 11 + [p] * 12
+        L.pgm_fill_max_clusters.argtypes = [i, i, i, ctypes.POINTER(i)]
+        L.pgm_fill_max_clusters.restype = i
         L.pgm_chase.argtypes = [p] * 14 + [i] * 7 + [p, p]
         for fn in (L.pgm_s_prep, L.pgm_s, L.pgm_fill, L.pgm_chase):
             fn.restype = ctypes.c_int

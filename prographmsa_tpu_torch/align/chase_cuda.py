@@ -17,12 +17,11 @@ from __future__ import annotations
 
 import torch
 
-from prographmsa_tpu.align.graph_dp_pallas import BIG, COST_INF, EV_CAP, NEG
-from prographmsa_tpu.align.backtrack import STATE_M, STATE_X, STATE_Y
-
 from .. import _build
 from ..device import on_cuda
 from .fill_cuda import FillOut
+from .slots import (BIG, COST_INF, EV_CAP, NEG, STATE_M, STATE_X,
+                    STATE_Y)
 
 META_SCORE, META_LEN, META_FAIL_REP, META_FAIL_CHASE = range(4)
 N_META = 4

@@ -3,7 +3,7 @@ csrc/fill.cu) and its plain PyTorch version ``fill_torch``.
 
 Replaces the Pallas kernel prographmsa_tpu/align/graph_dp_pallas.py
 (_make_kernel).  The source note in csrc/fill.cu says what is carried over
-exactly and what the TPU forced and was dropped.  Inputs, batch-padded:
+exactly and what the design does on this card.  Inputs, batch-padded:
   Sdiag [B, D, n1max] f32       (scores_cuda.exact_s)
   O1, O2 [B, opmax] int32       offsets per slot (padding: 1)
   C1T [B, opmax, n1max], C2T [B, opmax, n2max] f32
@@ -14,20 +14,38 @@ exactly and what the TPU forced and was dropped.  Inputs, batch-padded:
 Outputs (``FillOut``): codes [B, D, n1max] int32, the final rings W/Y/X/M
 [B, Rmax, n1max] f32 and the boundary stripes Y[:, 0] [B, n1max] and
 X[0, :] [B, n2max].
+
+Only slots with an edge into the node are candidates (cost < COST_INF on
+both sides for a match).  An edge-less candidate is about NEG and loses to
+every candidate with both edges; with none of those the stored value is
+NEG either way.  So this changes no value and no code of a cell whose value
+is real, which is every cell a path reaches.  Kernel and plain version mask
+the same candidates and agree on whole planes.
 """
 
 from __future__ import annotations
 
+import ctypes
+import math
 from typing import NamedTuple
 
 import torch
 
-from prographmsa_tpu.align.graph_dp_pallas import COST_INF, FLOOR, NEG
-
 from .. import _build
 from ..device import on_cuda
+from .slots import COST_INF, FLOOR, NEG
 
 MAX_SLOTS = 64                  # the kernel's shared offset tables
+MAX_BLOCKS_PER_PAIR = 8         # portable thread block cluster size
+WIDE_BLOCKS_PER_PAIR = 16       # non-portable size: only where card_limits
+                                # finds that the card can hold it
+MAX_THREADS = 1024
+SMEM_BYTES = 220 * 1024         # dynamic shared memory a block may ask for
+SMS = 132                       # H100 SXM
+ROWS_PER_BLOCK = 384            # rows x lanes one block takes before a pair
+                                # is spread over more blocks
+LANE_THREADS = 768              # a band's rows x lanes stay within this many
+                                # threads (larger blocks pay more per barrier)
 
 
 class FillOut(NamedTuple):
@@ -40,8 +58,91 @@ class FillOut(NamedTuple):
     stripeX: torch.Tensor
 
 
-def _alloc(B, D, n1max, n2max, Rmax, dev) -> FillOut:
+class FillPlan(NamedTuple):
+    """How one launch of K3 is laid out on the card."""
+    blocks_per_pair: int        # cluster size: 1, 2, 4, 8 or 16
+    lanes: int                  # threads per cell, a power of two <= 32
+    threads: int                # per block
+    smem_rings: bool            # W/Y/X rings in (distributed) shared memory
+    smem_bytes: int             # dynamic shared memory per block
+
+
+def _pow2_ceil(x: float) -> int:
+    return 1 << (max(1, math.ceil(x)) - 1).bit_length()
+
+
+def plan_fill(B: int, n1max: int, Rmax: int, cands: float = 1.0,
+              blocks_per_pair: int | None = None, lanes: int | None = None,
+              sms: int = SMS,
+              max_blocks: int = MAX_BLOCKS_PER_PAIR) -> FillPlan:
+    """Layout of a launch of B pairs with at most n1max rows, rings of Rmax
+    diagonals and about ``cands`` match candidates per cell (the product of
+    the two graphs' mean in-degrees).  Chains (``cands`` < 1.5) get one
+    lane per cell; merged graphs get twice their mean in lanes, because the
+    slowest cell of a diagonal sets its time and the counts are skewed.  A
+    pair is spread over more blocks while its rows x lanes exceed
+    ROWS_PER_BLOCK per block, the launch still fits the card's ``sms`` SMs
+    once and the cluster stays within ``max_blocks`` (``card_limits``).
+    The constants come from k3_sweep.py on an H100.  ``blocks_per_pair``
+    and ``lanes`` override these choices (checks and measurements only)."""
+    lane_threads = LANE_THREADS if lanes is None else MAX_THREADS
+    if lanes is None:
+        lanes = 1 if cands < 1.5 else min(32, _pow2_ceil(2 * cands))
+    C = blocks_per_pair
+    if C is None:
+        C = 1
+        while (C < max_blocks and n1max * lanes > ROWS_PER_BLOCK * C
+               and B * C * 2 <= sms):
+            C *= 2
+    band = -(-n1max // C)
+    while lanes > 1 and band * lanes > lane_threads:
+        lanes //= 2
+    threads = min(MAX_THREADS, max(128, -(-band * lanes // 32) * 32))
+    s_bytes = 2 * band * 4
+    ring_bytes = 3 * Rmax * band * 4
+    smem_rings = s_bytes + ring_bytes <= SMEM_BYTES
+    return FillPlan(C, lanes, threads, smem_rings,
+                    s_bytes + (ring_bytes if smem_rings else 0))
+
+
+_card_limits: dict = {}
+
+
+def card_limits(device) -> tuple:
+    """(SMs, largest cluster ``plan_fill`` may use) on ``device``.  A card
+    gives its SM count, and WIDE_BLOCKS_PER_PAIR where it can hold such a
+    cluster at the largest block the planner asks for, else the portable
+    size.  A CPU device gives the H100's SM count and the portable size;
+    the plain version ignores the plan."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return SMS, MAX_BLOCKS_PER_PAIR
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    if idx not in _card_limits:
+        held = ctypes.c_int(0)
+        with torch.cuda.device(idx):
+            rc = _build.lib().pgm_fill_max_clusters(
+                WIDE_BLOCKS_PER_PAIR, LANE_THREADS, SMEM_BYTES,
+                ctypes.byref(held))
+        if rc != 0:
+            raise RuntimeError("cluster occupancy query failed (%d)" % rc)
+        _card_limits[idx] = (
+            torch.cuda.get_device_properties(idx).multi_processor_count,
+            WIDE_BLOCKS_PER_PAIR if held.value > 0 else MAX_BLOCKS_PER_PAIR)
+    return _card_limits[idx]
+
+
+def _alloc(B, D, n1max, n2max, Rmax, dev, filled: bool) -> FillOut:
+    """Output tensors: ``filled`` for the plain version, which writes the
+    live positions only; the kernel writes every position itself."""
     f32 = torch.float32
+    if not filled:
+        return FillOut(
+            torch.empty((B, D, n1max), dtype=torch.int32, device=dev),
+            *(torch.empty((B, Rmax, n1max), dtype=f32, device=dev)
+              for _ in range(4)),
+            torch.empty((B, n1max), dtype=f32, device=dev),
+            torch.empty((B, n2max), dtype=f32, device=dev))
     return FillOut(
         torch.zeros((B, D, n1max), dtype=torch.int32, device=dev),
         *(torch.full((B, Rmax, n1max), NEG, dtype=f32, device=dev)
@@ -50,8 +151,10 @@ def _alloc(B, D, n1max, n2max, Rmax, dev) -> FillOut:
         torch.full((B, n2max), NEG, dtype=f32, device=dev))
 
 
-def fill(Sdiag, O1, O2, C1T, C2T, iv, par, Rmax: int) -> FillOut:
-    """K3 on CUDA tensors, ``fill_torch`` on CPU tensors."""
+def fill(Sdiag, O1, O2, C1T, C2T, iv, par, Rmax: int,
+         plan: FillPlan | None = None) -> FillOut:
+    """K3 on CUDA tensors (laid out by ``plan``, default ``plan_fill`` for
+    single-candidate cells), ``fill_torch`` on CPU tensors."""
     if not on_cuda(Sdiag, O1, O2, C1T, C2T, iv, par):
         return fill_torch(Sdiag, O1, O2, C1T, C2T, iv, par, Rmax)
     B, D, n1max = Sdiag.shape
@@ -64,22 +167,31 @@ def fill(Sdiag, O1, O2, C1T, C2T, iv, par, Rmax: int) -> FillOut:
                       (C1T, torch.float32, (B, opmax, n1max)),
                       (C2T, torch.float32, (B, opmax, n2max)),
                       (iv, torch.int32, (B, 8)), (par, torch.float32, (B, 8)))
-    out = _alloc(B, D, n1max, n2max, Rmax, Sdiag.device)
-    threads = min(1024, max(32, (n1max + 31) // 32 * 32))
+    if plan is None:
+        plan = plan_fill(B, n1max, Rmax)
+    dev = Sdiag.device
+    out = _alloc(B, D, n1max, n2max, Rmax, dev, filled=False)
+    # per-node edge lists (slot | offset << 8, cost bits) and their lengths
+    E1 = torch.empty((B, opmax, n1max, 2), dtype=torch.int32, device=dev)
+    E2 = torch.empty((B, opmax, n2max, 2), dtype=torch.int32, device=dev)
+    cnt1 = torch.empty((B, n1max), dtype=torch.int32, device=dev)
+    cnt2 = torch.empty((B, n2max), dtype=torch.int32, device=dev)
     L = _build.lib()
     p = _build.ptr
     _build.launch("fill", L.pgm_fill, p(Sdiag), p(O1), p(O2), p(C1T), p(C2T),
-                  p(iv), p(par), B, D, n1max, n2max, opmax, Rmax, threads,
-                  *(p(t) for t in out))
+                  p(iv), p(par), B, D, n1max, n2max, opmax, Rmax,
+                  plan.blocks_per_pair, plan.lanes.bit_length() - 1,
+                  plan.threads, int(plan.smem_rings), plan.smem_bytes,
+                  p(E1), p(E2), p(cnt1), p(cnt2), *(p(t) for t in out))
     return out
 
 
 def _first_max(cand, valid, code):
     """Strict-improvement max from FLOOR over candidates in visit order:
-    cand [B, K, N], valid [B, K], code [B, K] -> (value [B, N], code [B, N]).
-    The winner is the first candidate equal to the maximum, as a sequential
-    ``if c > acc`` scan finds it; NaN candidates never win."""
-    c = torch.where(valid[:, :, None] & ~torch.isnan(cand), cand,
+    cand [B, K, N], valid [B, K, N], code [B, K] -> (value [B, N],
+    code [B, N]).  The winner is the first candidate equal to the maximum,
+    as a sequential ``if c > acc`` scan finds it; NaN candidates never win."""
+    c = torch.where(valid & ~torch.isnan(cand), cand,
                     torch.tensor(float("-inf"), device=cand.device))
     first = (c == c.amax(dim=1, keepdim=True)).to(torch.uint8).argmax(dim=1)
     val = c.gather(1, first[:, None, :])[:, 0, :]
@@ -89,20 +201,22 @@ def _first_max(cand, valid, code):
 
 
 def _fmax_chain(v, valid):
-    """fmax(...fmax(FLOOR, v_0)..., v_K-1) over valid, non-NaN v [B, K, N]."""
-    v = torch.where(valid[:, :, None] & ~torch.isnan(v), v,
+    """fmax(...fmax(FLOOR, v_0)..., v_K-1) over valid [B, K, N], non-NaN v
+    [B, K, N]."""
+    v = torch.where(valid & ~torch.isnan(v), v,
                     torch.tensor(float("-inf"), device=v.device))
     return torch.clamp(v.amax(dim=1), min=float(FLOOR))
 
 
 def fill_torch(Sdiag, O1, O2, C1T, C2T, iv, par, Rmax: int) -> FillOut:
-    """The plain PyTorch version of K3: the same diagonals, slots, candidate
-    op orders and tie-breaks, vectorised over pairs, rows and slots."""
+    """The plain PyTorch version of K3: the same diagonals, candidates (the
+    slots with an edge into the node), op orders and tie-breaks, vectorised
+    over pairs, rows and slots."""
     B, D, n1max = Sdiag.shape
     P, n2max = C2T.shape[1], C2T.shape[2]
     dev = Sdiag.device
     f32 = torch.float32
-    out = _alloc(B, D, n1max, n2max, Rmax, dev)
+    out = _alloc(B, D, n1max, n2max, Rmax, dev, filled=True)
     codes, ringW, ringY, ringX, ringM, stripeY, stripeX = out
     iv = iv.long()
     n1, n2, nl1, nl2, R, shb = (iv[:, k] for k in range(6))
@@ -132,9 +246,8 @@ def fill_torch(Sdiag, O1, O2, C1T, C2T, iv, par, Rmax: int) -> FillOut:
     codeX = ((j_idx[:, :, None] << 1) | two).reshape(B, 2 * P)
     codeM = ((i_idx[:, :, None] << shb[:, None, None])
              | j_idx[:, None, :]).reshape(B, P * P)
-    okY = ok_i[:, :, None].expand(B, P, 2).reshape(B, 2 * P)
-    okX = ok_j[:, :, None].expand(B, P, 2).reshape(B, 2 * P)
-    okM = (ok_i[:, :, None] & ok_j[:, None, :]).reshape(B, P * P)
+    e1 = ok_i[:, :, None] & (c1 < cinf)          # [B, P, N]: edge into y
+    okY = e1[:, :, None, :].expand(B, P, 2, n1max).reshape(B, 2 * P, n1max)
     dfull = n1 + n2 - 2
     ylive = ys[None, :] < n1[:, None]
     yl = (ys[None, :] >= 1) & (ys[None, :] <= (n1 - 2)[:, None])
@@ -149,6 +262,11 @@ def fill_torch(Sdiag, O1, O2, C1T, C2T, iv, par, Rmax: int) -> FillOut:
         cj = c2.gather(2, x.clamp(0, n2max - 1)[None, None, :]
                        .expand(B, P, n1max))
         cj = torch.where(xin[:, None, :], cj, cinf)                  # [B, P, N]
+        e2 = ok_j[:, :, None] & (cj < cinf)                          # edge into x
+        okX = e2[:, :, None, :].expand(B, P, 2, n1max).reshape(
+            B, 2 * P, n1max)
+        okM = (e1[:, :, None, :] & e2[:, None, :, :]).reshape(
+            B, P * P, n1max)
         Sd = Sdiag[:, d, :]
 
         # Y: per slot the Y move, then the W move
@@ -160,7 +278,7 @@ def fill_torch(Sdiag, O1, O2, C1T, C2T, iv, par, Rmax: int) -> FillOut:
         tge = yv + ge[:, None, None]
         cand = torch.stack([tge - c1, (w + gi[:, None, None]) - c1], 2)
         aY, cY = _first_max(cand.reshape(B, 2 * P, n1max), okY, codeY)
-        aYB = _fmax_chain(torch.fmax(tge, w + sg[:, None, None]) - c1, ok_i)
+        aYB = _fmax_chain(torch.fmax(tge, w + sg[:, None, None]) - c1, e1)
 
         # M: g1 slots outer, g2 slots inner
         ds2 = d - o1[:, :, None] - o2[:, None, :]                    # [B, P, P]
@@ -182,7 +300,7 @@ def fill_torch(Sdiag, O1, O2, C1T, C2T, iv, par, Rmax: int) -> FillOut:
         tge = xv + ge[:, None, None]
         cand = torch.stack([tge - cj, (wv + gi[:, None, None]) - cj], 2)
         aX, cX = _first_max(cand.reshape(B, 2 * P, n1max), okX, codeX)
-        aXB = _fmax_chain(torch.fmax(tge, wv + sg[:, None, None]) - cj, ok_j)
+        aXB = _fmax_chain(torch.fmax(tge, wv + sg[:, None, None]) - cj, e2)
 
         xl = (x[None, :] >= 1) & (x[None, :] <= (n2 - 2)[:, None])
         interior = yl & xl
@@ -200,7 +318,7 @@ def fill_torch(Sdiag, O1, O2, C1T, C2T, iv, par, Rmax: int) -> FillOut:
                 | (wst << (4 * s + 2)))
 
         act = ylive & (d <= dfull)[:, None]
-        codes[:, d, :] = torch.where(act, code, 0).to(torch.int32)
+        codes[:, d, :] = torch.where(act & xin, code, 0).to(torch.int32)
         slot = d % R
         for rg, v in ((ringW, Wr), (ringY, Yr), (ringX, Xr), (ringM, Mr)):
             rg[ar, slot] = torch.where(act, v, rg[ar, slot])

@@ -14,14 +14,16 @@ counted under its reason in ``fallback_stats()``:
   fb_chase    the walk did not reach the origin (never seen: a guard).
 The reference counts chase failures as fb_rep; here they are apart.  Its
 TPU-only rules (the VMEM fb_size rule for large rings, fb_spread of its
-8-pair groups) have no counterpart: one block owns one pair here.
+8-pair groups) have no counterpart here.
 
-Pair preparation reuses the reference's ``_offset_costs_rep``, so the slot
-order is the host PredIterator order.  ``pack_pairs`` turns the JAX
-package's numpy inputs (graph sites and edges, model M/pi, DynProgScores)
-into the port's batch tensors; both packages compute from the same numpy
-objects.  A pair's S plane and code plane are padded to the launch's largest
-pair, so pairs are sorted by size and cut into launches of bounded memory.
+Pair preparation builds the slot tables with ``slots.offset_costs_rep``, so
+the slot order is the host PredIterator order.  ``pack_pairs`` turns the
+port's host objects (graph sites and edges, model M/pi, DynProgScores) into
+the batch tensors.  A pair's S plane and code plane are padded to the
+launch's largest pair, so pairs are sorted by size and cut into launches of
+bounded memory; each launch carries the fill's layout on the card
+(``fill_cuda.plan_fill``: blocks per pair from the launch's pair count and
+sizes, lanes per cell from the graphs' in-degrees).
 """
 
 from __future__ import annotations
@@ -31,15 +33,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from prographmsa_tpu import timings
-from prographmsa_tpu.align.backtrack import mark_alternative_path
-from prographmsa_tpu.align.graph_dp_pallas import (
-    COST_INF, EV_CAP, MAX_N, MAX_OFF, TIERS, _offset_costs_rep, _shb)
-
+from .. import timings
+from .backtrack import mark_alternative_path
 from .chase_cuda import (META_FAIL_CHASE, META_FAIL_REP, META_LEN,
                          META_SCORE, N_META, chase)
-from .fill_cuda import fill
+from .fill_cuda import FillPlan, card_limits, fill, plan_fill
 from .scores_cuda import exact_s
+from .slots import (COST_INF, EV_CAP, MAX_N, MAX_OFF, TIERS,
+                    offset_costs_rep, shb)
 
 MAX_R = max(r for _, r in TIERS)          # ring diagonals per pair
 LAUNCH_BYTES = 1 << 30                    # S + code planes of one launch
@@ -73,8 +74,8 @@ def prep_pair(idx, g1, g2, model, scores):
     """Slot tables for one pair, or the name of its fallback counter."""
     if g1.size > MAX_N or g2.size > MAX_N:
         return "fb_size"
-    oc1 = _offset_costs_rep(g1, scores, MAX_OFF)
-    oc2 = _offset_costs_rep(g2, scores, MAX_OFF)
+    oc1 = offset_costs_rep(g1, scores, MAX_OFF)
+    oc2 = offset_costs_rep(g2, scores, MAX_OFF)
     if oc1 is None or oc2 is None:
         return "fb_offsets"
     (o1, C1, rep1), (o2, C2, rep2) = oc1, oc2
@@ -82,11 +83,11 @@ def prep_pair(idx, g1, g2, model, scores):
     if R > MAX_R:
         return "fb_reach"
     need = max(len(o1), len(o2))
-    shb = _shb(min(op for op, _ in TIERS if op >= need))
+    width = shb(min(op for op, _ in TIERS if op >= need))
     inf_to_cap = lambda C: np.where(np.isfinite(C), C,
                                     COST_INF).astype(np.float32)
     return PairPrep(idx, g1, g2, model, scores, o1, inf_to_cap(C1), rep1,
-                    o2, inf_to_cap(C2), rep2, R, shb)
+                    o2, inf_to_cap(C2), rep2, R, width)
 
 
 class Batch(NamedTuple):
@@ -107,11 +108,19 @@ class Batch(NamedTuple):
     par: torch.Tensor     # [B, 8] f32: ge, gi, sg, si, em, eg, es
     Rmax: int
     Lm: int               # mapping capacity per pair
+    plan: FillPlan        # the fill's layout on the card for this launch
+
+
+def _cands_per_cell(p) -> float:
+    """Mean match candidates per cell of a pair: the product of the two
+    graphs' mean in-degrees over their slots."""
+    return (np.count_nonzero(p.C1 < COST_INF) / p.g1.size
+            * np.count_nonzero(p.C2 < COST_INF) / p.g2.size)
 
 
 def pack_pairs(preps, device) -> Batch:
     """The batch tensors of ``preps`` (built on the host, one copy each to
-    ``device``)."""
+    ``device``) and the fill's plan for that device."""
     B = len(preps)
     dim = preps[0].g1.dim
     n1max = max(p.g1.size for p in preps)
@@ -153,16 +162,22 @@ def pack_pairs(preps, device) -> Batch:
         par[b, :7] = (sc.gap_extend, sc.gap_init, sc.start_gap,
                       sc.start_init, sc.end_match, sc.end_gap, sc.end_skip)
     t = lambda a: torch.from_numpy(a).to(device)
+    Rmax = max(p.R for p in preps)
+    sms, max_blocks = card_limits(device)
     return Batch(t(g1T), t(g2T), t(M), t(pi), t(mi), t(n1), t(n2), t(O1),
                  t(O2), t(C1T), t(C2T), t(R1T), t(R2T), t(iv), t(par),
-                 max(p.R for p in preps), n1max + n2max + 8)
+                 Rmax, n1max + n2max + 8,
+                 plan_fill(B, n1max, Rmax,
+                           max(_cands_per_cell(p) for p in preps), sms=sms,
+                           max_blocks=max_blocks))
 
 
 def run_batch(bt: Batch):
     """S, fill and chase of one launch; the packed [B, W] int32 result
     (still on the batch's device)."""
     Sdiag = exact_s(bt.g1T, bt.g2T, bt.M, bt.pi, bt.mi, bt.n1, bt.n2)
-    fo = fill(Sdiag, bt.O1, bt.O2, bt.C1T, bt.C2T, bt.iv, bt.par, bt.Rmax)
+    fo = fill(Sdiag, bt.O1, bt.O2, bt.C1T, bt.C2T, bt.iv, bt.par, bt.Rmax,
+              bt.plan)
     return chase(fo, bt.O1, bt.O2, bt.C1T, bt.C2T, bt.R1T, bt.R2T, bt.iv,
                  bt.par, bt.Lm)
 

@@ -23,11 +23,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from prographmsa_tpu.align.graph_dp_pallas import NEG
-from prographmsa_tpu.align.scores import _LS_A, _LS_B, _LS_C
-
 from .. import _build
 from ..device import on_cuda
+from .scores import _LS_A, _LS_B, _LS_C
+from .slots import NEG
 
 MAX_DIM = 64
 _NAN_X86_BITS = -4194304          # 0xFFC00000 as int32

@@ -2,24 +2,26 @@
 
 Shared by tests/test_torch_*.py (on the CPU, against the plain versions)
 and chip_smoke.py (on the card, against the kernels).  Everything here is
-host code: the fixtures are the shapes of tests/test_graph_dp_pallas.py
-(chains, merged graphs, heavy-offset graphs, repeat-annotated chains), made
-from numpy seeds, and the oracles are the reference's host tiers
-(``precompute_scores(engine="numpy")``, ``fill_dp`` + ``backtrack``).
+host code of the port itself: the fixtures are the shapes of
+tests/test_graph_dp_pallas.py (chains, merged graphs, heavy-offset graphs,
+repeat-annotated chains), made from numpy seeds, and the oracles are the
+port's own host tiers (``precompute_scores(engine="numpy")``, ``fill_dp`` +
+``backtrack``, the native library).  The tests hold those against the JAX
+package.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from prographmsa_tpu.align.backtrack import backtrack
-from prographmsa_tpu.align.dp import fill_dp
-from prographmsa_tpu.align.merge import merge_graphs
-from prographmsa_tpu.align.scores import DynProgScores, precompute_scores
-from prographmsa_tpu.alphabet import AA_SPEC
-from prographmsa_tpu.config import Options
-from prographmsa_tpu.graph.graph import Graph, clean_graph, sequence_graph
-from prographmsa_tpu.models.factory import WagModelFactory
+from .align.backtrack import backtrack
+from .align.dp import fill_dp
+from .align.merge import merge_graphs
+from .align.scores import DynProgScores, precompute_scores
+from .alphabet import AA_SPEC
+from .config import Options
+from .graph.graph import Graph, clean_graph, sequence_graph
+from .models.factory import WagModelFactory
 
 OPTS = Options(engine="native")
 REPEAT_OPTS = Options(engine="native", repeat_rate=0.5, repeatext_prob=0.3)
@@ -130,8 +132,8 @@ def same_alignment(res, aln) -> bool:
 
 
 def native_align(g1, g2, m, sc):
-    """The reference's fused C++ node alignment (None for repeat graphs)."""
-    from prographmsa_tpu import native
+    """The native tier's fused C++ node alignment (None for repeat graphs)."""
+    from . import native
     return native.align_node_native(g1, g2, m, sc)
 
 

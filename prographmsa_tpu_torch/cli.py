@@ -1,6 +1,6 @@
-"""Command line of the PyTorch/CUDA port: the reference CLI
-(prographmsa_tpu/cli.py) with the graph-pair DP of every progressive pass
-on the port's device batch.
+"""Command line of the PyTorch/CUDA port: the flags and orchestration of
+the reference binary (main.cpp:32-483), as prographmsa_tpu/cli.py has them,
+with the graph-pair DP of every progressive pass on the port's device batch.
 
   python -m prographmsa_tpu_torch.cli [reference flags] \\
       [--engine torch|native] [--device cuda|cpu] sequences.fasta
@@ -8,30 +8,30 @@ on the port's device batch.
 ``--engine torch`` (default) runs each guide-tree level's DP batch on
 ``--device`` (default ``cuda``, which must exist: there is no silent CPU
 run; ``cpu`` runs the kernels' plain PyTorch versions).  ``--engine native``
-keeps the DP on the reference's C++ host tier.  The guide-tree distances
+keeps the DP on the port's own C++ host tier.  The guide-tree distances
 run on the host in both.  ``-r`` and ``--early_refinement`` are not ported
 yet and exit with an error.
 """
 
 from __future__ import annotations
 
+import argparse
 import sys
 from typing import Dict
 
 import numpy as np
 
-from prographmsa_tpu import alphabet as al
-from prographmsa_tpu import cli as ref_cli
-from prographmsa_tpu import timings
-from prographmsa_tpu.errors import ParityError
-from prographmsa_tpu.io.fasta import FastaError, read_fasta, write_fasta
-from prographmsa_tpu.io.newick import parse_newick
-from prographmsa_tpu.io.stockholm import write_stockholm
-from prographmsa_tpu.models.factory import get_default_model_factory
-from prographmsa_tpu.tree.phytree import get_tree_order
-from prographmsa_tpu.tree.treenj import tree_nj
-
+from . import alphabet as al
+from . import timings
+from .config import Options
 from .engine_policy import ENGINES, use_torch_dp
+from .errors import ParityError
+from .io.fasta import FastaError, read_fasta, write_fasta
+from .io.newick import parse_newick
+from .io.stockholm import write_stockholm
+from .models.factory import get_default_model_factory
+from .tree.phytree import get_tree_order
+from .tree.treenj import tree_nj
 
 NOT_PORTED = {
     "reroot": "-r/--reroot",
@@ -39,18 +39,106 @@ NOT_PORTED = {
 }
 
 
-def build_parser():
-    p = ref_cli.build_parser()
-    p.prog = "ProGraphMSA-Torch"
-    for act in p._actions:
-        if "--engine" in act.option_strings:
-            act.choices = ENGINES
-            act.default = "torch"
-            act.help = ("DP engine: torch = the port's device batch on "
-                        "--device; native = the C++ host tier")
-    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                   help="torch device of the DP batch (cuda must exist)")
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="ProGraphMSA-Torch",
+        description="ProGraphMSA, fast multiple sequence alignment "
+                    "(PyTorch/CUDA port)")
+    a = p.add_argument
+    a("sequences", help="input sequences (fasta file)")
+    a("-o", "--output", default="", help="Output file name")
+    a("-t", "--tree", default="", help="initial guide tree (newick file)")
+    a("--topology", default="", help="topology of initial guide tree")
+    a("--codon", action="store_true")
+    a("--dna", action="store_true")
+    a("-f", "--fasta", action="store_true",
+      help="output fasta format (instead of stockholm)")
+    a("-g", "--indel_rate", type=float, default=0.0093359375)
+    a("-e", "--gap_ext", type=float, default=0.6119140625)
+    a("-E", "--end_indel_prob", type=float, default=0.12)
+    a("-l", "--edge_halflife", type=float, default=0.3)
+    a("-s", "--altsplice_prob", type=float, default=0.328125)
+    a("-x", "--cutoff_dist", type=float, default=2.2)
+    a("-d", "--min_dist", type=float, default=0.05)
+    a("-D", "--max_dist", type=float, default=2.2)
+    a("-p", "--min_pdist", type=float, default=0.05)
+    a("-P", "--max_pdist", type=float, default=0.8)
+    a("-A", "--no_force_align", action="store_true")
+    a("--repeat_indel_rate", type=float, default=0.1)
+    a("--repeat_indel_ext", type=float, default=0.3)
+    a("--repalign", action="store_true")
+    a("-R", "--repeats", action="count", default=0)
+    a("--read_repeats", default="")
+    a("--trd_output", default="")
+    a("--custom_tr_cmd", default="")
+    a("-r", "--reroot", action="count", default=0)
+    a("-W", "--wls_refine", action="count", default=0)
+    a("--early_refinement", action="store_true")
+    a("-c", "--cs_profile", default="")
+    a("-w", "--darwin", action="store_true")
+    a("--profile_out", default="")
+    a("--custom_model", default="")
+    a("-F", "--estimate_aafreqs", action="store_true")
+    a("-C", "--aafreqs_pseudocount", type=float, default=1000.0)
+    a("-a", "--nwdist", action="store_true")
+    a("-m", "--mldist", action="store_true")
+    a("-M", "--mldist_gap", action="store_true")
+    a("-I", "--input_order", action="store_true")
+    a("-T", "--only_tree", action="store_true")
+    a("-i", "--iterations", type=int, default=None)
+    a("--all_trees", action="store_true")
+    a("--ancestral_seqs", action="store_true")
+    # extension (not a reference flag): per-phase wall-clock report to stderr
+    a("--timings", action="store_true", dest="timings")
+    # extension (not a reference flag): phase checkpoint/resume directory
+    a("--checkpoint_dir", default="")
+    # extensions (not reference flags): DP engine and its torch device
+    a("--engine", choices=ENGINES, default="torch",
+      help="DP engine: torch = the port's device batch on --device; "
+      "native = the C++ host tier")
+    a("--device", choices=("cuda", "cpu"), default="cuda",
+      help="torch device of the DP batch (cuda must exist)")
     return p
+
+
+def options_from_args(args) -> Options:
+    iters = args.iterations
+    if iters is None:
+        iters = 0 if args.tree else 2
+    opt = Options(
+        output_file=args.output, sequence_file=args.sequences,
+        tree_file=args.tree, topo_file=args.topology,
+        cs_file=args.cs_profile, cmodel_file=args.custom_model,
+        readreps_file=args.read_repeats, trdout_file=args.trd_output,
+        profile_file=args.profile_out, customtr_cmd=args.custom_tr_cmd,
+        iters=iters, reroot_flag=args.reroot, wlsrefine_flag=args.wls_refine,
+        earlyref_flag=args.early_refinement, repeats_flag=args.repeats,
+        repalign_flag=args.repalign, fasta_flag=args.fasta,
+        noforcealign_flag=args.no_force_align,
+        aafreqs_flag=args.estimate_aafreqs, darwin_flag=args.darwin,
+        nwdist_flag=args.nwdist, onlytree_flag=args.only_tree,
+        mldist_flag=args.mldist, mldist_gap_flag=args.mldist_gap,
+        alltrees_flag=args.all_trees, ancestral_flag=args.ancestral_seqs,
+        codon_flag=args.codon, dna_flag=args.dna,
+        inputorder_flag=args.input_order,
+        indel_rate=args.indel_rate, end_indel_prob=args.end_indel_prob,
+        gapext_prob=args.gap_ext, edge_halflife=args.edge_halflife,
+        altsplice_prob=args.altsplice_prob,
+        pseudo_count=args.aafreqs_pseudocount, cutoff_dist=args.cutoff_dist,
+        repeat_rate=args.repeat_indel_rate,
+        repeatext_prob=args.repeat_indel_ext,
+        max_dist=args.max_dist, min_dist=args.min_dist,
+        max_pdist=args.max_pdist, min_pdist=args.min_pdist,
+        engine=args.engine,
+        timings_flag=args.timings,
+        checkpoint_dir=args.checkpoint_dir,
+    )
+    # codon default rescaling (main.cpp:225-241): only when flags unset
+    defaults = dict(indel_set="--indel_rate" in sys.argv or "-g" in sys.argv,
+                    edgehl_set="--edge_halflife" in sys.argv or "-l" in sys.argv,
+                    maxdist_set="--max_dist" in sys.argv or "-D" in sys.argv,
+                    cutdist_set="--cutoff_dist" in sys.argv or "-x" in sys.argv)
+    return opt.with_codon_rescaling(**defaults)
 
 
 def do_align(seqs: Dict[str, str], options, device):
@@ -86,15 +174,15 @@ def do_align(seqs: Dict[str, str], options, device):
 
     csprofile = None
     if options.cs_file:
-        from prographmsa_tpu.cs_profile import CSProfileLibrary
+        from .cs_profile import CSProfileLibrary
         csprofile = CSProfileLibrary(options.cs_file)
 
     reps: Dict[str, list] = {}
     if options.readreps_file:
-        from prographmsa_tpu.repeats_treks import read_repeats
+        from .repeats_treks import read_repeats
         reps = read_repeats(options.readreps_file, seqs2, spec)
     elif options.repeats_flag:
-        from prographmsa_tpu.repeats_treks import align_repeats, detect_repeats
+        from .repeats_treks import align_repeats, detect_repeats
         reps = detect_repeats(seqs2, spec, options)
         if options.repalign_flag:
             reps = align_repeats(seqs2, reps, csprofile, factory, options,
@@ -106,7 +194,7 @@ def do_align(seqs: Dict[str, str], options, device):
             topo = parse_newick(fh.read())
     ckpt = state = None
     if options.checkpoint_dir:
-        from prographmsa_tpu.checkpoint import PhaseCheckpoint
+        from .checkpoint import PhaseCheckpoint
         ckpt = PhaseCheckpoint(options, seqs)
         state = ckpt.load()
 
@@ -142,7 +230,7 @@ def do_align(seqs: Dict[str, str], options, device):
                         _walk(node[ci])
 
                 _walk(tr)
-                csprofile.prime_profiles(leaves, engine=options.engine)
+                csprofile.prime_profiles(leaves)
         return progressive_alignment_batched(spec, seqs2, tr, reps,
                                              csprofile, factory, options,
                                              device)
@@ -155,8 +243,7 @@ def do_align(seqs: Dict[str, str], options, device):
             n: s for n, s in result.aligned_sequences.items()
             if not n.startswith("(")}
         # early convergence exit (main.cpp:418-420)
-        if i > 0 and ref_cli._aligned_equal(result.aligned_sequences,
-                                            old_aligned):
+        if i > 0 and _aligned_equal(result.aligned_sequences, old_aligned):
             break
         tree = tree_nj(spec, result.aligned_sequences, True, factory,
                        options, topo)
@@ -174,7 +261,7 @@ def do_align(seqs: Dict[str, str], options, device):
         print("TR indels: %d" % n_tr, file=sys.stderr)
 
     if options.profile_file and result is not None:
-        from prographmsa_tpu.io.profile_out import write_profile
+        from .io.profile_out import write_profile
         with open(options.profile_file, "w") as fh:
             write_profile(result.profiles, fh)
 
@@ -196,6 +283,12 @@ def do_align(seqs: Dict[str, str], options, device):
     return aligned, all_trees
 
 
+def _aligned_equal(a, b) -> bool:
+    if b is None or set(a) != set(b):
+        return False
+    return all(np.array_equal(a[k], b[k]) for k in a)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     for dest, flag in NOT_PORTED.items():
@@ -205,7 +298,7 @@ def main(argv=None) -> int:
                   "--early_refinement on the device DP)" % flag,
                   file=sys.stderr)
             return 2
-    port_options = ref_cli.options_from_args(args)
+    port_options = options_from_args(args)
     options = port_options.replace(engine="native")
     device = None
     if use_torch_dp(port_options):

@@ -2,160 +2,412 @@
 //
 // Replaces the Pallas kernel of prographmsa_tpu/align/graph_dp_pallas.py
 // (_make_kernel.kernel), which packs 8 pairs per grid step into the TPU's
-// sublanes.  Here one block owns one pair; its threads stride over the rows
-// y of the pair and the block walks its own diagonals d = 1 .. n1+n2-2 with
-// one __syncthreads() per diagonal.
+// sublanes and visits every offset slot of every cell, because the TPU has no
+// gathers.  This card has gathers, 132 SMs and a dependency chain of
+// D = n1 + n2 - 2 diagonals per pair, so the design is about the cost of one
+// diagonal and about how many SMs one pair can use:
+//
+//   * A thread block CLUSTER owns one pair (1, 2, 4, 8 or, where the card
+//     can hold the non-portable size, 16 blocks, chosen by the wrapper's
+//     plan from the launch's pair count and sizes).  Each block
+//     owns a band of rows y; the cluster walks the diagonals d = 1 .. D with
+//     one barrier per diagonal (cluster.sync(), or __syncthreads() for a
+//     cluster of one).
+//   * Only the slots that have an edge into the node are visited.  A prologue
+//     kernel compacts C1T/C2T into per-node lists in visit order (descending
+//     slot).  An edge-less slot costs COST_INF, its candidate is about NEG
+//     and loses to every candidate that has both edges; where no candidate
+//     has both edges the stored value is clamped to NEG either way.  So
+//     values are the same in every cell, and decision codes are the same in
+//     every cell whose value is real, which is every cell a path reaches.
+//     The plain version (fill_torch) masks the same candidates, so kernel
+//     and plain version agree bit for bit on whole planes.
+//   * `lanes` (a power of two up to 32) threads share one cell.  Each lane
+//     scans a strided subset of the cell's candidates in visit order with
+//     the strict-improvement rule, then a shuffle butterfly keeps the larger
+//     value and, at equal values, the smaller visit index: the sequential
+//     first-attainer scan from FLOOR, in parallel.  NaN never wins (c > a is
+//     false), and no winner above FLOOR leaves code 0.
+//   * The rings of the last R = reach + 2 diagonals of W, Y and X live in
+//     shared memory where 3*R*band floats fit, each block holding its band;
+//     a row y - o of a lower band is read from that block's shared memory
+//     through the cluster's distributed shared memory.  Otherwise they live
+//     in the output rings in global memory (L2; read and written past L1).
+//   * No cell divides: the ring slot of diagonal d - o is (d mod R) - o,
+//     plus R where that is negative (o < R), and d mod R advances by one per
+//     diagonal.  The S row of the next diagonal is copied into shared memory
+//     asynchronously while this diagonal computes, a thread that owns one
+//     cell keeps the head of its row's list in registers, and the stores
+//     nobody waits for (codes, tails, stripes) are issued between the two
+//     halves of the cluster barrier, whose release waits for every earlier
+//     store of the thread.
+//   * The kernel writes every position of codes, rings and stripes itself
+//     (padding included), so the wrapper allocates with torch.empty.
 //
 // What is carried over exactly (decision codes and values depend on it):
-//   * offset slots visited in DESCENDING slot index, with the repeat slots at
-//     the front of the kind-split slot arrays (_offset_costs_rep), so the
-//     visit order is the host PredIterator order;
-//   * per edge the Y (or X) move before the W move; a strict-improvement
-//     max from FLOOR that records the first attainer's code;
-//   * candidate op orders ((w2 + S) - ci) - cj and (y + ge) - ci;
-//   * fmaxf (NaN-ignoring, as jnp.fmax) for the boundary accumulators,
-//     the NaN-propagating clamp max(v, NEG) for the stored values;
-//   * the boundary rules, the W-state order M, Y, X and the code layout
-//     M = i << SHB | j, Y at 2*SHB, X at 3*SHB+1, W-state at 4*SHB+2.
-// Only the pair's own slots are visited (the TPU kernel visits its group's
-// maximum): codes in cells no path reaches may differ from the TPU kernel's,
-// codes on every path do not.
+// visit order = descending slot index with the repeat slots at the front of
+// the kind-split slot arrays (the host PredIterator order); per edge the Y
+// (or X) move before the W move; candidate op orders ((w2 + S) - ci) - cj
+// and (y + ge) - ci without contraction; fmaxf for the boundary accumulators
+// and the NaN-propagating clamp max(v, NEG) for stored values; the boundary
+// rules, the W-state order M, Y, X and the code layout M = i << SHB | j,
+// Y at 2*SHB, X at 3*SHB+1, W-state at 4*SHB+2.  Cells outside the pair's
+// grid (x < 0 or x >= n2) hold NEG and code 0.
 //
-// Dropped, because only the TPU needed them: the lane-rolled C2 window (C2 is
-// read at [slot, x] directly), chained-select ring reads, the when_slot
-// tuning, 128-lane padding, group padding (_DummyInfo, _form_groups,
-// GROUP_SPREAD), the BUCKET / TIER_FLOOR compile knobs and the VMEM-only
-// fb_size rule for R = 256 rings.
+// Outputs: codes [B, D, n1max] diagonal-major; the final rings W/Y/X/M
+// [B, Rmax, n1max] (slot d % R), which are the end-region tails the chase
+// reads; stripeY [B, n1max] = Y[y, 0] and stripeX [B, n2max] = X[0, x].
 //
-// Layout (one pair per block; all pair arrays padded to the batch maxima):
-//   Sdiag / codes [B, D, n1max]   diagonal-major, so a diagonal's reads and
-//                                 writes coalesce over y;
-//   rings W/Y/X/M [B, Rmax, n1max] the last R = reach + 2 diagonals in global
-//                                 memory (L2-resident at these sizes).  The
-//                                 wrapper fills them with NEG.  After the fill
-//                                 the M/X/Y rings ARE the end-region tails the
-//                                 chase reads (the end transition looks back
-//                                 at most reach diagonals);
-//   stripeY [B, n1max], stripeX [B, n2max]: the boundary values Y[y, 0] and
-//                                 X[0, x] for the chase's boundary replay.
-//
-// Bound on the H100: at short n the per-diagonal barrier latency (n1+n2
-// barriers per pair, a few hundred cycles each); at long n the ring reads
-// (nl1*nl2 + 2*nl1 + 2*nl2 loads per cell, L1/L2 hits).  Shared-memory rings
-// and several diagonals per barrier are later work.
+// Bound on the H100: the roofline bound is memory (S read once, codes written
+// once); what remains above it is the chain of D barriers, each followed by
+// a dependent ring read.
 #include "common.cuh"
+
+#include <cooperative_groups.h>
+#include <cuda_pipeline.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-__global__ void fill_kernel(const float* __restrict__ Sdiag,
-                            const int* __restrict__ O1,
-                            const int* __restrict__ O2,
-                            const float* __restrict__ C1T,
-                            const float* __restrict__ C2T,
-                            const int* __restrict__ iv,
-                            const float* __restrict__ par, int D, int n1max,
-                            int n2max, int opmax, int Rmax,
-                            int* __restrict__ codes, float* ringW,
-                            float* ringY, float* ringX, float* ringM,
-                            float* __restrict__ stripeY,
-                            float* __restrict__ stripeX) {
-  __shared__ int so1[64];
-  __shared__ int so2[64];
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
+constexpr int kMaxSlots = 64;
+constexpr int kMaxCluster = 16;  // 8 is portable, 16 needs the opt-in
+constexpr int kNoWinner = 0x7fffffff;
+constexpr int kKeyShift = 12;  // key = visit index << 12 | code field
+enum { RING_W = 0, RING_Y = 1, RING_X = 2 };
+
+struct FillArgs {
+  const float* Sdiag;
+  const int* O1;
+  const int* O2;
+  const int2* E1;   // [B, opmax, n1max] (slot | offset << 8, cost bits)
+  const int2* E2;   // [B, opmax, n2max]
+  const int* cnt1;  // [B, n1max] list lengths
+  const int* cnt2;  // [B, n2max]
+  const int* iv;
+  const float* par;
+  int D, n1max, n2max, opmax, Rmax, lanes_log2;
+  int* codes;
+  float* ringW;
+  float* ringY;
+  float* ringX;
+  float* ringM;
+  float* stripeY;
+  float* stripeX;
+};
+
+// Per-node lists of the slots with an edge into the node, in visit order.
+__global__ void fill_lists_kernel(const float* __restrict__ CT,
+                                  const int* __restrict__ O,
+                                  const int* __restrict__ iv, int side,
+                                  int nmax, int opmax, int2* __restrict__ E,
+                                  int* __restrict__ cnt) {
+  const int b = blockIdx.y;
+  const int y = blockIdx.x * blockDim.x + threadIdx.x;
+  if (y >= nmax) return;
   const int* ivb = iv + b * PGM_IV_W;
+  const int n = ivb[side ? PGM_IV_N2 : PGM_IV_N1];
+  const int nl = ivb[side ? PGM_IV_NL2 : PGM_IV_NL1];
+  const float cinf = pgm_f(PGM_COST_INF_BITS);
+  int k = 0;
+  if (y < n) {
+    for (int i = nl - 1; i >= 0; --i) {
+      const float c = CT[((size_t)b * opmax + i) * nmax + y];
+      if (c < cinf) {
+        E[((size_t)b * opmax + k) * nmax + y] =
+            make_int2(i | (O[b * opmax + i] << 8), __float_as_int(c));
+        ++k;
+      }
+    }
+  }
+  cnt[(size_t)b * nmax + y] = k;
+}
+
+// Butterfly over the `lanes` threads of a cell: larger value, then smaller key.
+__device__ __forceinline__ void reduce_first_max(unsigned mask, int lanes,
+                                                 float& v, int& key) {
+  for (int off = lanes >> 1; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(mask, v, off);
+    const int ok = __shfl_xor_sync(mask, key, off);
+    if (ov > v || (ov == v && ok < key)) {
+      v = ov;
+      key = ok;
+    }
+  }
+}
+
+__device__ __forceinline__ float reduce_fmax(unsigned mask, int lanes,
+                                             float v) {
+  for (int off = lanes >> 1; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(mask, v, off));
+  return v;
+}
+
+// One barrier of the pair's blocks, in two halves, so that stores nobody
+// waits for (codes, tails, stripes) can be issued between them: a release
+// has to see every earlier store of the thread performed, and a store to
+// global memory takes a round trip to L2.
+__device__ __forceinline__ void pair_arrive(bool cluster) {
+  if (cluster)
+    asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+
+__device__ __forceinline__ void pair_wait(bool cluster) {
+  if (cluster)
+    asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+  else
+    __syncthreads();
+}
+
+// ONE_LANE fixes one thread per cell at compile time (chains and the leaf
+// levels), which strips the lane bookkeeping from their diagonals.
+template <bool SMEM, bool ONE_LANE>
+__global__ void __launch_bounds__(1024) fill_kernel(const FillArgs a) {
+  extern __shared__ float dyn[];
+  __shared__ const float* peer[kMaxCluster];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const bool multi = C > 1;
+  const int b = blockIdx.x / C;
+  const int tid = threadIdx.x, T = blockDim.x;
+  const int lanes_log2 = ONE_LANE ? 0 : a.lanes_log2;
+  const int lanes = 1 << lanes_log2;
+  const int l = tid & (lanes - 1);
+  const unsigned gmask =
+      (lanes == 32) ? 0xffffffffu
+                    : (((1u << lanes) - 1u) << ((tid & 31) & ~(lanes - 1)));
+
+  const int* ivb = a.iv + b * PGM_IV_W;
   const int n1 = ivb[PGM_IV_N1], n2 = ivb[PGM_IV_N2];
-  const int nl1 = ivb[PGM_IV_NL1], nl2 = ivb[PGM_IV_NL2];
   const int R = ivb[PGM_IV_R], shb = ivb[PGM_IV_SHB];
-  const float* pb = par + b * PGM_PAR_W;
+  const float* pb = a.par + b * PGM_PAR_W;
   const float ge = pb[0], gi = pb[1], sg = pb[2], si = pb[3];
   const float neg = pgm_f(PGM_NEG_BITS);
-  const float cinf = pgm_f(PGM_COST_INF_BITS);
   const float floor_ = pgm_f(PGM_FLOOR_BITS);
+  const int n1max = a.n1max, n2max = a.n2max;
 
-  for (int k = tid; k < opmax; k += blockDim.x) {
-    so1[k] = O1[b * opmax + k];
-    so2[k] = O2[b * opmax + k];
-  }
-  const float* S = Sdiag + (size_t)b * D * n1max;
-  const float* c1 = C1T + (size_t)b * opmax * n1max;
-  const float* c2 = C2T + (size_t)b * opmax * n2max;
-  int* cd = codes + (size_t)b * D * n1max;
-  float* rW = ringW + (size_t)b * Rmax * n1max;
-  float* rY = ringY + (size_t)b * Rmax * n1max;
-  float* rX = ringX + (size_t)b * Rmax * n1max;
-  float* rM = ringM + (size_t)b * Rmax * n1max;
-  float* sY = stripeY + (size_t)b * n1max;
-  float* sX = stripeX + (size_t)b * n2max;
-  if (tid == 0) rW[0] = si;  // diagonal 0: W[0, 0] = start_init
-  __syncthreads();
+  // this block's band of rows
+  const int band = (n1 + C - 1) / C;
+  const int y0 = rank * band;
+  const int rows = max(0, min(band, n1 - y0));
+  const int bandmax = (n1max + C - 1) / C;
+  float* Sbuf = dyn;               // [2][bandmax]: S of this and the next d
+  float* rg = dyn + 2 * bandmax;   // SMEM: [3][R][band]
+  const int rsz = R * band;        // one ring in shared memory
 
+  const size_t plane = (size_t)b * a.D * n1max;
+  const float* S = a.Sdiag + plane;
+  int* cd = a.codes + plane;
+  const size_t roff = (size_t)b * a.Rmax * n1max;
+  float* gW = a.ringW + roff;
+  float* gY = a.ringY + roff;
+  float* gX = a.ringX + roff;
+  float* gM = a.ringM + roff;
+  float* sY = a.stripeY + (size_t)b * n1max;
+  float* sX = a.stripeX + (size_t)b * n2max;
+  const int2* e1 = a.E1 + (size_t)b * a.opmax * n1max;
+  const int2* e2 = a.E2 + (size_t)b * a.opmax * n2max;
+  const int* k1 = a.cnt1 + (size_t)b * n1max;
+  const int* k2 = a.cnt2 + (size_t)b * n2max;
   const int dfull = n1 + n2 - 2;
+
+  // ---- everything the diagonals do not write: the padded columns this
+  // block owns ([ylo, yhi); the last block takes the columns past n1)
+  const int ylo = min(y0, n1max);
+  const int yhi = (rank == C - 1) ? n1max : min(y0 + band, n1max);
+  const int ncol = yhi - ylo;
+  for (int idx = tid; idx < a.Rmax * ncol; idx += T) {
+    const int at = (idx / ncol) * n1max + ylo + idx % ncol;
+    gW[at] = neg;
+    gY[at] = neg;
+    gX[at] = neg;
+    gM[at] = neg;
+  }
+  for (int y = ylo + tid; y < yhi; y += T) {
+    sY[y] = neg;
+    cd[y] = 0;
+  }
+  for (int d = dfull + 1; d < a.D; ++d)
+    for (int y = ylo + tid; y < yhi; y += T) cd[(size_t)d * n1max + y] = 0;
+  if (yhi > n1) {
+    const int plo = max(ylo, n1), pn = yhi - plo;
+    for (int idx = tid; idx < dfull * pn; idx += T)
+      cd[(size_t)(1 + idx / pn) * n1max + plo + idx % pn] = 0;
+  }
+  if (rank == 0)
+    for (int x = tid; x < n2max; x += T) sX[x] = neg;
+  if (SMEM) {
+    for (int idx = tid; idx < 3 * rsz; idx += T) rg[idx] = neg;
+    if (tid < C) peer[tid] = cluster.map_shared_rank(rg, tid);
+  }
+  if (dfull >= 1)
+    for (int r = tid; r < rows; r += T)
+      __pipeline_memcpy_async(&Sbuf[bandmax + r], &S[n1max + y0 + r], 4);
+  __pipeline_commit();
+  __syncthreads();
+  if (rank == 0 && tid == 0) {  // diagonal 0: W[0, 0] = start_init
+    if (SMEM) rg[0] = si; else __stcg(&gW[0], si);
+  }
+  __pipeline_wait_prior(0);
+  pair_arrive(multi);
+  pair_wait(multi);
+
+  // ring reads: slot s of ring `which` at row `row` (any row <= this band's)
+  auto ring_ld = [&](int which, int s, int row) -> float {
+    if (SMEM) {
+      int lr = row - y0;
+      const float* base = rg;
+      if (lr < 0) {
+        const int kk = (band - 1 - lr) / band;
+        base = peer[rank - kk];
+        lr += kk * band;
+      }
+      return base[which * rsz + s * band + lr];
+    }
+    const float* g = (which == RING_W) ? gW : ((which == RING_Y) ? gY : gX);
+    return __ldcg(g + s * n1max + row);
+  };
+  // ring slot of diagonal d - back (0 < back < R), given slot = d % R
+  auto slot_of = [&](int slot, int back) -> int {
+    const int s = slot - back;
+    return (s < 0) ? s + R : s;
+  };
+
+  // a thread that owns one cell keeps its row's list head in registers
+  const int cells_per_pass = T >> lanes_log2;
+  const bool one_cell = rows <= cells_per_pass;
+  const int cell0 = tid >> lanes_log2;
+  const bool lane_ok = l < a.opmax;
+  int n1c_h = 0;
+  int2 e1_h = make_int2(0, 0);
+  if (cell0 < rows) {
+    n1c_h = k1[y0 + cell0];
+    if (lane_ok) e1_h = __ldg(&e1[l * n1max + y0 + cell0]);
+  }
+
+  int slot = 0;  // d % R
+  int* cdrow = cd;
   for (int d = 1; d <= dfull; ++d) {
-    const int slot = d % R;
-    for (int y = tid; y < n1; y += blockDim.x) {
+    const int par = d & 1;
+    slot = (slot + 1 == R) ? 0 : slot + 1;
+    cdrow += n1max;
+    if (d < dfull)
+      for (int r = tid; r < rows; r += T)
+        __pipeline_memcpy_async(&Sbuf[(par ^ 1) * bandmax + r],
+                                &S[(size_t)(d + 1) * n1max + y0 + r], 4);
+    __pipeline_commit();
+
+    // stores of the thread's last cell wait until the barrier's first half
+    bool have = false;
+    int st_y = 0, st_x = 0, st_code = 0;
+    float st_M = neg, st_Y = neg, st_X = neg;
+    for (int cell = cell0; cell < rows; cell += cells_per_pass) {
+      const int y = y0 + cell;
       const int x = d - y;
-      const bool xin = (x >= 0) && (x < n2);
-      const float Sd = S[(size_t)d * n1max + y];
+      const bool in = (x >= 0) && (x < n2);
+      // list heads: both sides' loads are issued before either is used
+      int n1c = one_cell ? n1c_h : k1[y];
+      int2 e1f = e1_h;
+      if (!one_cell && lane_ok) e1f = __ldg(&e1[l * n1max + y]);
+      int n2c = 0;
+      int2 e2f = make_int2(0, 0);
+      if (in) {
+        n2c = __ldg(&k2[x]);
+        if (lane_ok) e2f = __ldg(&e2[l * n2max + x]);
+      } else {
+        n1c = 0;
+      }
+      const float Sd = Sbuf[par * bandmax + cell];
 
       // Y: moves along g1 edges (y - o1, x) -> (y, x)
       float aY = floor_, aYB = floor_;
-      int cY = 0;
-      for (int i = nl1 - 1; i >= 0; --i) {
-        const int o = so1[i];
-        const float ci = c1[(size_t)i * n1max + y];
-        const int ds = d - o;
+      int keyY = kNoWinner;
+      for (int t = l; t < n1c; t += lanes) {
+        const int2 e = (t == l) ? e1f : __ldg(&e1[t * n1max + y]);
+        const int i = e.x & 0xff, o = e.x >> 8;
+        const float ci = __int_as_float(e.y);
         float w = neg, yv = neg;
-        if (ds >= 0 && y >= o) {
-          const size_t at = (size_t)(ds % R) * n1max + (y - o);
-          w = rW[at];
-          yv = rY[at];
+        if (y >= o) {
+          const int s = slot_of(slot, o);
+          w = ring_ld(RING_W, s, y - o);
+          yv = ring_ld(RING_Y, s, y - o);
         }
         const float tge = __fadd_rn(yv, ge);
         const float ca = __fsub_rn(tge, ci);
-        if (ca > aY) { aY = ca; cY = i << 1; }
+        if (ca > aY) { aY = ca; keyY = ((2 * t) << kKeyShift) | (i << 1); }
         const float cb = __fsub_rn(__fadd_rn(w, gi), ci);
-        if (cb > aY) { aY = cb; cY = (i << 1) | 1; }
+        if (cb > aY) {
+          aY = cb;
+          keyY = ((2 * t + 1) << kKeyShift) | (i << 1) | 1;
+        }
         aYB = fmaxf(aYB, __fsub_rn(fmaxf(tge, __fadd_rn(w, sg)), ci));
       }
 
-      // M: matches from (y - o1, x - o2)
+      // M: matches from (y - o1, x - o2); g1 edges outer, g2 edges inner
       float aM = floor_;
-      int cM = 0;
-      for (int i = nl1 - 1; i >= 0; --i) {
-        const int o = so1[i];
-        const float ci = c1[(size_t)i * n1max + y];
-        for (int j = nl2 - 1; j >= 0; --j) {
-          const int p = so2[j];
-          const float cj = xin ? c2[(size_t)j * n2max + x] : cinf;
-          const int ds = d - o - p;
+      int keyM = kNoWinner;
+      const int total = n1c * n2c;
+      if (l < total) {
+        int ta = 0, tb = l;
+        while (tb >= n2c) { tb -= n2c; ++ta; }
+        int2 ea = (ta == l) ? e1f : __ldg(&e1[ta * n1max + y]);
+        for (int k = l; k < total; k += lanes) {
+          const int2 eb = (tb == l) ? e2f : __ldg(&e2[tb * n2max + x]);
+          const int i = ea.x & 0xff, o = ea.x >> 8;
+          const int j = eb.x & 0xff, p = eb.x >> 8;
           float w2 = neg;
-          if (ds >= 0 && y >= o) w2 = rW[(size_t)(ds % R) * n1max + (y - o)];
-          const float c = __fsub_rn(__fsub_rn(__fadd_rn(w2, Sd), ci), cj);
-          if (c > aM) { aM = c; cM = (i << shb) | j; }
+          if (y >= o && x >= p)
+            w2 = ring_ld(RING_W, slot_of(slot, o + p), y - o);
+          const float c = __fsub_rn(
+              __fsub_rn(__fadd_rn(w2, Sd), __int_as_float(ea.y)),
+              __int_as_float(eb.y));
+          if (c > aM) { aM = c; keyM = (k << kKeyShift) | (i << shb) | j; }
+          tb += lanes;
+          if (tb >= n2c) {
+            do { tb -= n2c; ++ta; } while (tb >= n2c);
+            if (ta < n1c) ea = __ldg(&e1[ta * n1max + y]);
+          }
         }
       }
 
       // X: moves along g2 edges (y, x - o2) -> (y, x)
       float aX = floor_, aXB = floor_;
-      int cX = 0;
-      for (int j = nl2 - 1; j >= 0; --j) {
-        const int p = so2[j];
-        const float cj = xin ? c2[(size_t)j * n2max + x] : cinf;
-        const int ds = d - p;
+      int keyX = kNoWinner;
+      for (int t = l; t < n2c; t += lanes) {
+        const int2 e = (t == l) ? e2f : __ldg(&e2[t * n2max + x]);
+        const int j = e.x & 0xff, p = e.x >> 8;
+        const float cj = __int_as_float(e.y);
         float xv = neg, wv = neg;
-        if (ds >= 0) {
-          const size_t at = (size_t)(ds % R) * n1max + y;
-          xv = rX[at];
-          wv = rW[at];
+        if (x >= p) {
+          const int s = slot_of(slot, p);
+          xv = ring_ld(RING_X, s, y);
+          wv = ring_ld(RING_W, s, y);
         }
         const float tge = __fadd_rn(xv, ge);
         const float ca = __fsub_rn(tge, cj);
-        if (ca > aX) { aX = ca; cX = j << 1; }
+        if (ca > aX) { aX = ca; keyX = ((2 * t) << kKeyShift) | (j << 1); }
         const float cb = __fsub_rn(__fadd_rn(wv, gi), cj);
-        if (cb > aX) { aX = cb; cX = (j << 1) | 1; }
+        if (cb > aX) {
+          aX = cb;
+          keyX = ((2 * t + 1) << kKeyShift) | (j << 1) | 1;
+        }
         aXB = fmaxf(aXB, __fsub_rn(fmaxf(tge, __fadd_rn(wv, sg)), cj));
       }
+
+      if (lanes > 1) {
+        reduce_first_max(gmask, lanes, aY, keyY);
+        reduce_first_max(gmask, lanes, aM, keyM);
+        reduce_first_max(gmask, lanes, aX, keyX);
+        aYB = reduce_fmax(gmask, lanes, aYB);
+        aXB = reduce_fmax(gmask, lanes, aXB);
+      }
+      if (l != 0) continue;
+      const int fmask = (1 << kKeyShift) - 1;
+      const int cY = (keyY == kNoWinner) ? 0 : (keyY & fmask);
+      const int cM = (keyM == kNoWinner) ? 0 : (keyM & fmask);
+      const int cX = (keyX == kNoWinner) ? 0 : (keyX & fmask);
 
       const bool ylive = (y >= 1) && (y <= n1 - 2);
       const bool xlive = (x >= 1) && (x <= n2 - 2);
@@ -171,36 +423,148 @@ __global__ void fill_kernel(const float* __restrict__ Sdiag,
       Xr = pgm_clamp_neg(Xr);
       Yr = pgm_clamp_neg(Yr);
       Wr = pgm_clamp_neg(Wr);
-      const int wst = (Wr == Mr) ? PGM_ST_M : ((Wr == Yr) ? PGM_ST_Y : PGM_ST_X);
+      const int wst =
+          (Wr == Mr) ? PGM_ST_M : ((Wr == Yr) ? PGM_ST_Y : PGM_ST_X);
       const int code = cM | (cY << (2 * shb)) | (cX << (3 * shb + 1)) |
                        (wst << (4 * shb + 2));
 
-      cd[(size_t)d * n1max + y] = code;
-      const size_t at = (size_t)slot * n1max + y;
-      rW[at] = Wr;
-      rY[at] = Yr;
-      rX[at] = Xr;
-      rM[at] = Mr;
-      if (x == 0) sY[y] = Yr;
-      if (y == 0 && x < n2) sX[x] = Xr;
+      // what the next diagonals read goes out first
+      if (SMEM) {
+        float* w = rg + slot * band + cell;
+        w[RING_W * rsz] = Wr;
+        w[RING_Y * rsz] = Yr;
+        w[RING_X * rsz] = Xr;
+      } else {
+        const int at = slot * n1max + y;
+        __stcg(&gW[at], Wr);
+        __stcg(&gY[at], Yr);
+        __stcg(&gX[at], Xr);
+      }
+      if (have) {  // an earlier cell of this thread: store it now
+        __stcs(&cdrow[st_y], st_code);
+        if (d > dfull - R) gM[slot * n1max + st_y] = st_M;
+        if (st_x == 0) sY[st_y] = st_Y;
+        if (st_y == 0 && st_x < n2) sX[st_x] = st_X;
+      }
+      have = true;
+      st_y = y; st_x = x; st_code = in ? code : 0;
+      st_M = Mr; st_Y = Yr; st_X = Xr;
     }
-    __syncthreads();
+    __pipeline_wait_prior(0);
+    pair_arrive(multi);
+    if (have) {
+      __stcs(&cdrow[st_y], st_code);
+      if (d > dfull - R) gM[slot * n1max + st_y] = st_M;  // the tails
+      if (st_x == 0) sY[st_y] = st_Y;
+      if (st_y == 0 && st_x < n2) sX[st_x] = st_X;
+    }
+    pair_wait(multi);
+  }
+
+  if (SMEM) {  // the final rings are the chase's tails
+    for (int idx = tid; idx < R * rows; idx += T) {
+      const int r = idx / rows, c = idx % rows;
+      const int at = r * n1max + y0 + c;
+      gW[at] = rg[RING_W * rsz + r * band + c];
+      gY[at] = rg[RING_Y * rsz + r * band + c];
+      gX[at] = rg[RING_X * rsz + r * band + c];
+    }
   }
 }
 
 }  // namespace
 
+// Attributes of `kern` and the launch configuration of B clusters.
+static cudaError_t fill_config(void (*kern)(const FillArgs), int B,
+                               int blocks_per_pair, int threads,
+                               int smem_bytes, cudaStream_t st,
+                               cudaLaunchConfig_t* cfg,
+                               cudaLaunchAttribute* attr) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                           blocks_per_pair > 8 ? 1 : 0);
+  if (e != cudaSuccess) return e;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(B * blocks_per_pair);
+  cfg->blockDim = dim3(threads);
+  cfg->dynamicSmemBytes = smem_bytes;
+  cfg->stream = st;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = blocks_per_pair;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// Launches the list prologue and the fill: B clusters of `blocks_per_pair`
+// blocks of `threads` threads, `1 << lanes_log2` threads per cell, the W/Y/X
+// rings in shared memory iff `smem_rings` (`smem_bytes` of dynamic shared
+// memory per block, as fill_cuda.plan_fill computes it).
 extern "C" int pgm_fill(const float* Sdiag, const int* O1, const int* O2,
                         const float* C1T, const float* C2T, const int* iv,
                         const float* par, int B, int D, int n1max, int n2max,
-                        int opmax, int Rmax, int threads, int* codes,
-                        float* ringW, float* ringY, float* ringX,
-                        float* ringM, float* stripeY, float* stripeX,
-                        void* stream) {
-  fill_kernel<<<B, threads, 0, (cudaStream_t)stream>>>(
-      Sdiag, O1, O2, C1T, C2T, iv, par, D, n1max, n2max, opmax, Rmax, codes,
-      ringW, ringY, ringX, ringM, stripeY, stripeX);
+                        int opmax, int Rmax, int blocks_per_pair,
+                        int lanes_log2, int threads, int smem_rings,
+                        int smem_bytes, int2* E1, int2* E2, int* cnt1,
+                        int* cnt2, int* codes, float* ringW, float* ringY,
+                        float* ringX, float* ringM, float* stripeY,
+                        float* stripeX, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (opmax > kMaxSlots || blocks_per_pair > kMaxCluster || threads < 128)
+    return (int)cudaErrorInvalidValue;
+  const dim3 lb(128);
+  fill_lists_kernel<<<dim3((n1max + 127) / 128, B), lb, 0, st>>>(
+      C1T, O1, iv, 0, n1max, opmax, E1, cnt1);
+  fill_lists_kernel<<<dim3((n2max + 127) / 128, B), lb, 0, st>>>(
+      C2T, O2, iv, 1, n2max, opmax, E2, cnt2);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  FillArgs a;
+  a.Sdiag = Sdiag; a.O1 = O1; a.O2 = O2; a.E1 = E1; a.E2 = E2;
+  a.cnt1 = cnt1; a.cnt2 = cnt2; a.iv = iv; a.par = par;
+  a.D = D; a.n1max = n1max; a.n2max = n2max; a.opmax = opmax; a.Rmax = Rmax;
+  a.lanes_log2 = lanes_log2;
+  a.codes = codes; a.ringW = ringW; a.ringY = ringY; a.ringX = ringX;
+  a.ringM = ringM; a.stripeY = stripeY; a.stripeX = stripeX;
+
+  void (*kern)(const FillArgs) =
+      smem_rings ? (lanes_log2 ? fill_kernel<true, false>
+                               : fill_kernel<true, true>)
+                 : (lanes_log2 ? fill_kernel<false, false>
+                               : fill_kernel<false, true>);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  e = fill_config(kern, B, blocks_per_pair, threads, smem_bytes, st, &cfg,
+                  attr);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaLaunchKernelEx(&cfg, kern, a);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// How many clusters of `blocks_per_pair` blocks of `threads` threads and
+// `smem_bytes` of dynamic shared memory the card can hold at once (0: such
+// a launch would be refused).  The non-portable size 16 depends on the
+// card's GPCs, so the wrapper asks before it plans with it.
+extern "C" int pgm_fill_max_clusters(int blocks_per_pair, int threads,
+                                     int smem_bytes, int* clusters) {
+  if (blocks_per_pair > kMaxCluster) return (int)cudaErrorInvalidValue;
+  void (*kern)(const FillArgs) = fill_kernel<true, false>;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t e = fill_config(kern, 1, blocks_per_pair, threads, smem_bytes,
+                              nullptr, &cfg, attr);
+  if (e != cudaSuccess) return (int)e;
+  if (cudaOccupancyMaxActiveClusters(clusters, kern, &cfg) != cudaSuccess) {
+    cudaGetLastError();  // a size the card refuses is an answer: none
+    *clusters = 0;
+  }
+  return (int)cudaSuccess;
 }
 
 extern "C" const char* pgm_error_string(int err) {

@@ -4,10 +4,10 @@ The port of prographmsa_tpu/engine/level_driver.py: per guide-tree level it
 prepares every ready node on the host (models, graph cleaning), aligns the
 level's pairs in one device batch (align/graph_dp_cuda.py) when ``device``
 is given, and merges each node on the host.  Pairs the batch hands back
-(``None``) and every pair when ``device`` is None are aligned by the
-reference's host ``align_graphs``; under ``--timings`` each such pair shows
-as a ``torch_fb_*`` counter.  ``options`` is the host options object and
-carries ``engine="native"``, so the reused host layers never probe for JAX.
+(``None``) and every pair when ``device`` is None are aligned by the host
+``align_graphs`` (engine/progressive.py); under ``--timings`` each such pair
+shows as a ``torch_fb_*`` counter.  ``options`` is the host options object
+and carries ``engine="native"`` for the host layers.
 """
 
 from __future__ import annotations
@@ -15,16 +15,33 @@ from __future__ import annotations
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
-from prographmsa_tpu import native, timings
-from prographmsa_tpu.align.backtrack import AlignmentResult
-from prographmsa_tpu.align.scores import DynProgScores
-from prographmsa_tpu.engine.level_driver import _collect_nodes
-from prographmsa_tpu.engine.progressive import (
+from .. import native, timings
+from ..align import graph_dp_cuda
+from ..align.backtrack import AlignmentResult
+from ..align.scores import DynProgScores
+from ..errors import ParityError
+from .progressive import (
     align_graphs, align_progressive_results, create_ancestral_seq_name,
     prealign_node, progressive_alignment)
-from prographmsa_tpu.errors import ParityError
 
-from ..align import graph_dp_cuda
+
+def _collect_nodes(tree):
+    """Post-order node list with child indices."""
+    nodes = []
+
+    def rec(t):
+        if t.is_leaf():
+            nodes.append((t, None, None))
+            return len(nodes) - 1
+        if t.n_children() != 2:
+            raise ParityError("only bifurcating trees allowed")
+        c0 = rec(t[0])
+        c1 = rec(t[1])
+        nodes.append((t, c0, c1))
+        return len(nodes) - 1
+
+    rec(tree)
+    return nodes
 
 
 def progressive_alignment_batched(spec, sequences, tree, repeats, csprofile,

@@ -1,7 +1,7 @@
 """Which executor runs the graph-pair DP of a level batch.
 
 ``torch``: the port's device batch (align/graph_dp_cuda.py) on the run's
-device.  ``native``: the JAX package's C++ host tier, pair by pair.  A
+device.  ``native``: the port's C++ host tier (native/), pair by pair.  A
 probed ``auto`` policy (the reference's engine_policy.use_pallas_dp with
 its calibration) is still to be ported (ROADMAP)."""
 

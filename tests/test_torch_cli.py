@@ -70,6 +70,9 @@ def test_port_never_imports_jax(tmp_path):
         " '--timings', '-o', %r])\n"
         "assert rc == 0, rc\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "stray = [m for m in sys.modules if m == 'prographmsa_tpu'"
+        " or m.startswith('prographmsa_tpu.')]\n"
+        "assert not stray, stray\n"
         "print('NO-JAX')\n" % (G + "/tree0_fam6.nwk", FIX + "/fam6.fasta",
                                out))
     env = dict(os.environ)

@@ -22,7 +22,10 @@ from prographmsa_tpu_torch import checks
 from prographmsa_tpu_torch.align import graph_dp_cuda as gdp
 from prographmsa_tpu_torch.align.chase_cuda import (
     META_FAIL_CHASE, META_FAIL_REP, N_META, chase, chase_torch, row_width)
-from prographmsa_tpu_torch.align.fill_cuda import fill, fill_torch
+from prographmsa_tpu_torch.align.fill_cuda import (
+    LANE_THREADS, MAX_BLOCKS_PER_PAIR, MAX_THREADS, SMEM_BYTES, SMS,
+    WIDE_BLOCKS_PER_PAIR, card_limits, fill, fill_torch, plan_fill)
+from prographmsa_tpu_torch.align.slots import FLOOR
 from prographmsa_tpu_torch.align.scores_cuda import exact_s
 
 
@@ -220,6 +223,154 @@ def test_wrappers_take_plain_versions_on_cpu():
         assert torch.equal(a, b)
     ca = (bt.O1, bt.O2, bt.C1T, bt.C2T, bt.R1T, bt.R2T, bt.iv, bt.par, bt.Lm)
     assert torch.equal(chase(fo, *ca), chase_torch(fp, *ca))
+
+
+def _ref_batch_equal(items):
+    """The JAX package's own batch (Pallas fill in interpret mode) and the
+    port's on the same pairs: mappings, score, n_tr_indels."""
+    ref = ref_gdp.align_pairs_device(items, interpret=True)
+    ours = gdp.align_pairs_device(items, "cpu")
+    for r, o in zip(ref, ours):
+        assert r is not None and o is not None
+        assert list(o[0]) == list(r[0]) and list(o[1]) == list(r[1])
+        assert np.float32(o[2]) == np.float32(r[2]) and o[3] == r[3]
+    return ours
+
+
+def test_mostly_edgeless_slots_one_pair_batch():
+    """A one-pair batch whose slots are mostly edge-less (more than 16
+    offsets, each node with a few of them): only the slots with an edge are
+    candidates; the result equals the JAX package's batch, the host and the
+    port's native tier."""
+    g1 = checks.many_offsets_graph(44, 20, 7)
+    g2 = checks.heavy(40, [2, 3, 5, 9, 14], 8)
+    pair = (g1, g2, checks.model(0.5))
+    p = gdp.prep_pair(0, *pair, checks.DynProgScores(*pair, checks.OPTS))
+    assert len(p.o1) > 16
+    edges = np.count_nonzero(p.C1 < gdp.COST_INF)
+    assert edges < 0.25 * p.C1.size, "slots must be mostly edge-less"
+    res, expected = _assert_batch([pair])
+    items, _ = checks.items_and_expected([pair])
+    ours = _ref_batch_equal(items)
+    assert checks.same_alignment(ours[0], expected[0])
+    nat = checks.native_align(*items[0])
+    assert nat is not None and checks.same_alignment(ours[0], nat)
+
+
+def test_merged_pair_alone_in_its_batch_matches_reference_and_native():
+    m = checks.model(0.3)
+    rng = np.random.RandomState(33)
+    s = checks.random_seq(rng, 60)
+    cg = checks.merged(s, checks.mutated(rng, s, 6), m)
+    cg2 = checks.merged(s, checks.mutated(rng, s, 9), m)
+    items, expected = checks.items_and_expected([(cg, cg2, m)])
+    ours = _ref_batch_equal(items)
+    assert checks.same_alignment(ours[0], expected[0])
+    assert checks.same_alignment(ours[0], checks.native_align(*items[0]))
+
+
+def _sequential_first_max(cand):
+    """The rule K3 implements per cell: strict improvement from FLOOR in
+    visit order; (value, winning visit index or -1)."""
+    acc, at = float(FLOOR), -1
+    for k, c in enumerate(cand.tolist()):
+        if c > acc:
+            acc, at = c, k
+    return acc, at
+
+
+def _lanes_first_max(cand, lanes):
+    """The same rule as K3 runs it on ``lanes`` threads: each lane scans the
+    candidates k = lane, lane + lanes, ... in order, then a butterfly keeps
+    the larger value and, at equal values, the smaller visit index."""
+    none = 1 << 30
+    val = torch.full((lanes,), float(FLOOR), dtype=torch.float32)
+    idx = torch.full((lanes,), none, dtype=torch.long)
+    for k, c in enumerate(cand):
+        lane = k % lanes
+        if bool(c > val[lane]):
+            val[lane], idx[lane] = c, k
+    off = lanes // 2
+    while off:
+        peer = torch.arange(lanes) ^ off
+        ov, oi = val[peer], idx[peer]
+        take = (ov > val) | ((ov == val) & (oi < idx))
+        val, idx = torch.where(take, ov, val), torch.where(take, oi, idx)
+        off //= 2
+    assert bool((val == val[0]).all()) and bool((idx == idx[0]).all())
+    return float(val[0]), (-1 if int(idx[0]) == none else int(idx[0]))
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 32])
+@pytest.mark.parametrize("case", ["random", "ties", "nans",
+                                  "all_below_floor", "empty", "tie_at_top"])
+def test_lane_split_first_max_equals_sequential_scan(case, lanes):
+    rng = np.random.RandomState(len(case) * 37 + lanes)
+    n = 0 if case == "empty" else rng.randint(1, 150)
+    cand = rng.randn(n).astype(np.float32)
+    if case == "ties":
+        cand = rng.randint(-2, 3, n).astype(np.float32)
+    if case == "nans":
+        cand[rng.rand(n) < 0.4] = np.nan
+    if case == "all_below_floor":
+        cand[:] = np.float32(-3.2e38)
+        cand[rng.rand(n) < 0.3] = FLOOR          # equal to FLOOR never wins
+    if case == "tie_at_top":
+        cand[rng.choice(n, min(n, 5), replace=False)] = np.float32(7.0)
+    cand = torch.from_numpy(cand)
+    assert _lanes_first_max(cand, lanes) == _sequential_first_max(cand)
+
+
+# level shapes of the fam500 -i 0 pass and the timed shapes, as k3_sweep.py
+# prints them on the card (PERF.md):
+# (pairs, largest n1, ring diagonals, candidates per cell)
+#     -> (blocks per pair, lanes per cell) with the portable cluster size,
+#        and where the card holds 16-block clusters
+PLAN_CASES = [
+    ("fam500_level0", (186, 317, 4, 1.0), (1, 1), (1, 1)),
+    ("fam100_largest_level", (39, 209, 4, 1.0), (1, 1), (1, 1)),
+    ("fam500_level3", (45, 329, 12, 1.2), (1, 1), (1, 1)),
+    ("fam500_level6", (15, 376, 16, 1.8), (4, 4), (4, 4)),
+    ("fam500_level9", (5, 461, 26, 2.6), (8, 8), (16, 8)),
+    ("fam500_level12_two_pairs", (2, 726, 62, 3.4), (8, 8), (16, 8)),
+    ("fam500_level13_one_pair", (1, 1007, 65, 3.0), (8, 4), (16, 8)),
+    ("fam500_level14_one_pair", (1, 1125, 98, 3.99), (8, 4), (16, 8)),
+    ("fam500_root_one_pair", (1, 1514, 128, 4.5), (8, 4), (16, 8)),
+    ("chains_8x2000", (8, 2002, 4, 1.0), (8, 1), (8, 1)),
+    ("level_filling_the_card", (70, 600, 30, 4.0), (1, 1), (1, 1)),
+    ("two_blocks_fit", (40, 600, 30, 4.0), (2, 2), (2, 2)),
+]
+
+
+@pytest.mark.parametrize("max_blocks", [MAX_BLOCKS_PER_PAIR,
+                                        WIDE_BLOCKS_PER_PAIR])
+@pytest.mark.parametrize("name,shape,portable,wide", PLAN_CASES,
+                         ids=[c[0] for c in PLAN_CASES])
+def test_plan_fill_blocks_per_pair(name, shape, portable, wide, max_blocks):
+    B, n1max, Rmax, cands = shape
+    plan = plan_fill(B, n1max, Rmax, cands, max_blocks=max_blocks)
+    assert (plan.blocks_per_pair, plan.lanes) == (
+        portable if max_blocks == MAX_BLOCKS_PER_PAIR else wide)
+    assert plan.blocks_per_pair in (1, 2, 4, 8, 16)
+    assert plan.blocks_per_pair <= max_blocks
+    assert plan.blocks_per_pair == 1 or B * plan.blocks_per_pair <= 132
+    band = -(-n1max // plan.blocks_per_pair)
+    assert plan.lanes in (1, 2, 4, 8, 16, 32)
+    assert 128 <= plan.threads <= MAX_THREADS and plan.threads % 32 == 0
+    assert plan.lanes == 1 or band * plan.lanes <= LANE_THREADS
+    assert plan.smem_bytes <= SMEM_BYTES
+    ring_bytes = 3 * Rmax * band * 4
+    assert plan.smem_rings == (2 * band * 4 + ring_bytes <= SMEM_BYTES)
+
+
+def test_card_limits_of_a_cpu_device_are_the_portable_ones():
+    assert card_limits("cpu") == (SMS, MAX_BLOCKS_PER_PAIR)
+
+
+def test_plan_fill_moves_rings_to_global_memory_when_they_do_not_fit():
+    plan = plan_fill(1, 4096, 256, 1.0)
+    assert not plan.smem_rings and plan.smem_bytes == 2 * 512 * 4
+    assert plan_fill(1, 4096, 256, 1.0, blocks_per_pair=2).blocks_per_pair == 2
 
 
 @pytest.mark.cuda
