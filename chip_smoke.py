@@ -12,9 +12,20 @@ call.  Every phase raises on failure; there is no CPU fallback.  One line
 per phase, then one JSON line of kernels, the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Long output goes to chiprun_out/.
 
+Two times per kernel.  ``ms`` is the call time: CUDA events round a loop
+of calls of the Python wrapper, so a kernel shorter than its launch path
+reads as that path.  ``device_ms`` is the kernel's own time on the card:
+the same calls captured once in a CUDA graph and replayed between two
+events, free of Python.  ``launch_floor_ms`` is an empty grid timed the
+same way, what any launch costs there.
+
 The bound of a kernel is the larger of its bytes (each input read once,
 each output written once, the pairs' own cells only) over HBM_BYTES_S and
-its float32 operations over F32_FLOPS, the H100 SXM's published peaks.
+its float32 operations over F32_FLOPS, the H100 SXM's published peaks.  The
+chase is a chain of dependent reads that no roofline shows, so it has a
+second bound, ``chain_ms``: the longest walk's steps times one dependent
+read from shared memory (``chain_l2_ms``: from L2), both latencies measured
+on the card by pgm_chase_latency.
 """
 
 from __future__ import annotations
@@ -34,13 +45,16 @@ import torch
 from prographmsa_tpu_torch import _build, checks, native, timings
 from prographmsa_tpu_torch import cli as port_cli
 from prographmsa_tpu_torch.align import graph_dp_cuda as gdp
-from prographmsa_tpu_torch.align.chase_cuda import (META_LEN, chase,
-                                                    chase_torch, row_width)
+from prographmsa_tpu_torch.align import scores_cuda
+from prographmsa_tpu_torch.align.chase_cuda import (MAX_WINDOW, N_STATS,
+                                                    chase, chase_torch,
+                                                    plan_chase, row_width)
 from prographmsa_tpu_torch.align.fill_cuda import (card_limits, fill,
                                                    fill_torch, plan_fill)
 from prographmsa_tpu_torch.align.slots import COST_INF
 from prographmsa_tpu_torch.align.scores_cuda import (
-    s_plane, s_plane_torch, s_prep, s_prep_torch, unshear)
+    DGROUPS, XVECS, exact_s, plan_s_prep, s_plane, s_plane_torch, s_prep,
+    s_prep_torch, unshear)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIX = os.path.join(REPO, "fixtures")
@@ -59,6 +73,7 @@ KERNELS = {
 }
 max_err = {k: 0.0 for k in KERNELS}
 detail = []
+CALL_REPS = 200               # calls per call-time reading of K1
 HBM_BYTES_S = 3.35e12          # H100 SXM device memory rate
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 
@@ -97,15 +112,87 @@ def pack(items, dev):
     return preps, gdp.pack_pairs(preps, dev)
 
 
+def s_prep_layouts(B, dim, n2max):
+    """The launch's own plan of K1 (None) and every layout it is compiled
+    for that these sizes allow."""
+    return [None] + [plan_s_prep(B, dim, n2max, dgroup=g, xvec=v)
+                     for g in DGROUPS for v in XVECS
+                     if v == 1 or n2max % 4 == 0]
+
+
+def s_prep_check(g2T, M, pi):
+    """K1 under each layout against s_prep_torch, bit for bit; returns the
+    output under the launch's own plan and the layouts checked."""
+    t2p, v2p = s_prep_torch(g2T, M, pi)
+    layouts = s_prep_layouts(*g2T.shape)
+    for plan in reversed(layouts):
+        t2, v2 = s_prep(g2T, M, pi, plan)
+        diff("s_prep", t2, t2p, "t2 under %s" % (plan,))
+        diff("s_prep", v2, v2p, "v2 under %s" % (plan,))
+    return t2, v2, len(layouts)
+
+
 def s_check(bt):
-    t2, v2 = s_prep(bt.g2T, bt.M, bt.pi)
-    t2p, v2p = s_prep_torch(bt.g2T, bt.M, bt.pi)
-    diff("s_prep", t2, t2p, "t2")
-    diff("s_prep", v2, v2p, "v2")
+    """K1 (every layout) and K2 against their plain versions, and the two
+    launched from one call, with and without programmatic dependent launch,
+    against K2 alone."""
+    t2, v2, _ = s_prep_check(bt.g2T, bt.M, bt.pi)
     Sd = s_plane(bt.g1T, t2, v2, bt.pi, bt.mi, bt.n1, bt.n2)
     diff("s", Sd, s_plane_torch(bt.g1T, t2, v2, bt.pi, bt.mi, bt.n1, bt.n2),
          "Sdiag")
+    for pdl in (False, True):
+        diff("s", exact_s_with(pdl, bt), Sd, "Sdiag of exact_s, pdl=%s" % pdl)
     return Sd
+
+
+def exact_s_with(pdl, bt):
+    """exact_s with K2 launched as K1's programmatic dependent or not."""
+    return exact_s(bt.g1T, bt.g2T, bt.M, bt.pi, bt.mi, bt.n1, bt.n2, pdl=pdl)
+
+
+def chase_args(bt, R1T=None, R2T=None):
+    return (bt.O1, bt.O2, bt.C1T, bt.C2T, bt.R1T if R1T is None else R1T,
+            bt.R2T if R2T is None else R2T, bt.iv, bt.par, bt.Lm)
+
+
+def chase_layouts(bt):
+    """The launch's own plan of X1 and other block sizes and code windows,
+    down to a window of 2 cells a side that nearly every step leaves."""
+    B, _, n1max = bt.g1T.shape
+    opmax, n2max = bt.O1.shape[1], bt.g2T.shape[2]
+    return [plan_chase(B, opmax, n1max, n2max)] + [
+        plan_chase(B, opmax, n1max, n2max, win=w, threads=t)
+        for w, t in ((2, 32), (8, 64), (16, 128), (32, 256),
+                     (MAX_WINDOW, 32))]
+
+
+def chase_check(fo, bt, name, model=True, **flags):
+    """X1 under each layout against chase_torch, whole rows; with ``model``
+    also the kernel's counts (steps, window fills, boundary replays)
+    against the numpy model of its walk.  Returns (layouts checked, the
+    counts under the launch's own plan)."""
+    ca = chase_args(bt, **flags)
+    want = chase_torch(fo, *ca)
+    B = want.shape[0]
+    layouts = chase_layouts(bt)
+    first = None
+    cpu = lambda ts: [t.cpu() for t in ts]
+    for plan in layouts:
+        stats = torch.full((B, N_STATS), -1, dtype=torch.int32,
+                           device=want.device)
+        diff("chase", chase(fo, *ca, plan=plan, stats=stats), want,
+             "%s under %s" % (name, plan))
+        stats = stats.cpu().numpy()
+        if model:
+            _, ms = checks.chase_window_model(
+                type(fo)(*cpu(fo)), *cpu(ca[:-1]), bt.Lm, win=plan.win)
+            if not np.array_equal(stats, ms):
+                raise AssertionError("chase %s under %s: counts %s, model %s"
+                                     % (name, plan, stats.tolist(),
+                                        ms.tolist()))
+        first = stats if first is None else first
+    diff("chase", chase(fo, *ca), want, name + " without counts")
+    return len(layouts), first
 
 
 def fill_args(Sd, bt):
@@ -200,8 +287,18 @@ def phase_s(dev):
                 raise AssertionError("S of pair %d differs from the host "
                                      "precompute_scores" % b)
             n_cells += Sh.size
+    # K1 alone at the alphabets' widths (DNA 4, protein 20, codons 61, the
+    # widest it takes), every layout
+    n_layouts = 0
+    for dim in (4, 20, 61, scores_cuda.MAX_DIM):
+        for B, n2max in ((1, 203), (5, 316)):
+            g2T, M, pi = (torch.from_numpy(rng.rand(*shape).astype(
+                np.float32)).to(dev) for shape in (
+                    (B, dim, n2max), (B, dim, dim), (B, dim)))
+            n_layouts += s_prep_check(g2T, M, pi)[2]
     say("s_kernel", t0, pairs=len(pairs) + 1, cells=n_cells,
-        vs_host="bit-identical", vs_plain="bit-identical")
+        vs_host="bit-identical", vs_plain="bit-identical",
+        s_prep_layouts_checked_dim_4_20_61_64=n_layouts)
 
 
 def fill_pairs():
@@ -249,10 +346,15 @@ def phase_fill_chase(dev):
         codes_rings_stripes="bit-identical")
 
     t1 = time.perf_counter()
-    for items, expected, bt, fo in outs:
-        args = (bt.O1, bt.O2, bt.C1T, bt.C2T, bt.R1T, bt.R2T, bt.iv, bt.par,
-                bt.Lm)
-        diff("chase", chase(fo, *args), chase_torch(fo, *args), "packed")
+    n_layouts = n_over = 0
+    for (_, opts), (items, expected, bt, fo) in zip(groups, outs):
+        n_layouts += chase_check(fo, bt, "packed")[0]
+        if opts is checks.REPEAT_OPTS:
+            # every step a repeat step: more than EV_CAP events, fail_rep
+            ones = torch.ones_like(bt.R1T), torch.ones_like(bt.R2T)
+            chase_check(fo, bt, "event overflow", R1T=ones[0], R2T=ones[1])
+            over = chase(fo, *chase_args(bt, *ones))[:, 2 * bt.Lm + 2]
+            n_over += int(over.sum())
         res = gdp.align_pairs_device(items, dev)
         for k, (r, aln) in enumerate(zip(res, expected)):
             g1, g2, mm, sc = items[k]
@@ -261,10 +363,13 @@ def phase_fill_chase(dev):
                 raise AssertionError("pair %d: device alignment differs "
                                      "from the host" % k)
             n_rep += int(r[3] > 0)
-    if n_rep == 0:
-        raise AssertionError("no repeat event was exercised")
-    say("chase_kernel", t1, pairs=n_pairs, pairs_with_repeat_events=n_rep,
-        vs_plain="bit-identical", vs_native="mappings+score+n_tr identical")
+    if n_rep == 0 or n_over == 0:
+        raise AssertionError("no repeat event or no event overflow was "
+                             "exercised")
+    say("chase_kernel", t1, pairs=n_pairs, layouts_checked=n_layouts,
+        pairs_with_repeat_events=n_rep, pairs_with_event_overflow=n_over,
+        vs_plain="bit-identical rows", vs_model="equal counts",
+        vs_native="mappings+score+n_tr identical")
 
 
 def run_port(argv, record=None):
@@ -352,37 +457,43 @@ def phase_levels(dev, tmp):
         raise AssertionError("fam500: a kernel was not launched: %s"
                              % launches)
     rows, total = [], {k: 0.0 for k in KERNELS}
+    total_dev = {k: 0.0 for k in KERNELS}
     for lv, items in enumerate(levels):
         preps, bt = pack(items, dev)
         t2, v2 = s_prep(bt.g2T, bt.M, bt.pi)
         Sd = s_plane(bt.g1T, t2, v2, bt.pi, bt.mi, bt.n1, bt.n2)
         fo = fill(*fill_args(Sd, bt), bt.plan)
-        ms = {
-            "s_prep": time_cuda(lambda: s_prep(bt.g2T, bt.M, bt.pi), 3),
-            "s": time_cuda(lambda: s_plane(bt.g1T, t2, v2, bt.pi, bt.mi,
-                                           bt.n1, bt.n2), 3),
-            "fill": time_cuda(lambda: fill(*fill_args(Sd, bt), bt.plan), 3),
-            "chase": time_cuda(lambda: chase(fo, bt.O1, bt.O2, bt.C1T,
-                                             bt.C2T, bt.R1T, bt.R2T, bt.iv,
-                                             bt.par, bt.Lm), 3)}
+        runs = {
+            "s_prep": lambda: s_prep(bt.g2T, bt.M, bt.pi),
+            "s": lambda: s_plane(bt.g1T, t2, v2, bt.pi, bt.mi, bt.n1, bt.n2),
+            "fill": lambda: fill(*fill_args(Sd, bt), bt.plan),
+            "chase": lambda: chase(fo, *chase_args(bt))}
+        ms = {k: time_cuda(fn, 3) for k, fn in runs.items()}
+        dms = {k: device_time(fn, 3) for k, fn in runs.items()}
         for k in KERNELS:
             total[k] += ms[k]
+            total_dev[k] += dms[k]
         slots = max(len(p.o1) * len(p.o2) for p in preps)
         nmax = max(max(p.g1.size, p.g2.size) for p in preps)
         rows.append((lv, len(items), nmax, slots, max(p.R for p in preps),
-                     bt.plan, ms))
+                     bt.plan, ms, dms))
     note("== fam500 -i 0 levels: level pairs max_nodes max_slot_pairs "
          "max_R blocks_per_pair lanes threads smem_rings "
-         "ms(s_prep s fill chase)")
-    note(*("%2d %4d %5d %5d %4d %d %2d %4d %d  %.4f %.4f %.4f %.4f"
+         "ms(s_prep s fill chase) device_ms(s_prep s fill chase)")
+    note(*("%2d %4d %5d %5d %4d %d %2d %4d %d  %.4f %.4f %.4f %.4f  "
+           "%.4f %.4f %.4f %.4f"
            % (lv, b, n, sl, r, pl.blocks_per_pair, pl.lanes, pl.threads,
-              pl.smem_rings, *(ms[k] for k in KERNELS))
-           for lv, b, n, sl, r, pl, ms in rows))
+              pl.smem_rings, *(ms[k] for k in KERNELS),
+              *(dms[k] for k in KERNELS))
+           for lv, b, n, sl, r, pl, ms, dms in rows))
     top = sorted(rows, key=lambda r: -r[6]["fill"])[:3]
     say("levels:fam500", t0, levels=len(rows),
         launches=json.dumps(launches, separators=(",", ":")),
         kernel_ms_sum=json.dumps({k: round(v, 4) for k, v in total.items()},
                                  separators=(",", ":")),
+        kernel_device_ms_sum=json.dumps(
+            {k: round(v, 4) for k, v in total_dev.items()},
+            separators=(",", ":")),
         top_fill_levels=";".join("L%d:pairs=%d,nodes=%d,slot_pairs=%d,"
                                  "blocks_per_pair=%d,fill_ms=%.3f"
                                  % (r[0], r[1], r[2], r[3],
@@ -405,9 +516,7 @@ def phase_levels(dev, tmp):
         plan_fill(B, n1max, bt.Rmax, blocks_per_pair=C, lanes=lanes)
         for C, lanes in ((max(cluster_sizes(dev)), 8), (8, 32), (4, 8),
                          (2, 1))])
-    args = (bt.O1, bt.O2, bt.C1T, bt.C2T, bt.R1T, bt.R2T, bt.iv, bt.par,
-            bt.Lm)
-    diff("chase", chase(fo, *args), chase_torch(fo, *args), "root packed")
+    n_chase, _ = chase_check(fo, bt, "root packed", model=False)
     g1, g2, mm, sc = root[0]
     res = gdp.align_pairs_device(root, dev)[0]
     ref = checks.native_align(g1, g2, mm, sc)
@@ -418,9 +527,10 @@ def phase_levels(dev, tmp):
     say("root_pair", t0, nodes="%dx%d" % (g1.size, g2.size),
         slot_pairs=len(p.o1) * len(p.o2), R=p.R,
         plan=json.dumps(bt.plan._asdict(), separators=(",", ":")),
-        layouts_checked=n, vs_plain="bit-identical (full pair)",
+        layouts_checked=n, chase_layouts_checked=n_chase,
+        vs_plain="bit-identical (full pair)",
         vs_native="mappings+score+n_tr identical")
-    return launches, root
+    return launches, root, total, total_dev
 
 
 def cli_wall(args, out, extra=()):
@@ -499,13 +609,58 @@ def time_cuda(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def bounds(preps, packed, Lm):
+def device_time(fn, reps):
+    """Milliseconds of device time per call of ``fn``: ``reps`` calls
+    captured once in a CUDA graph (the wrappers launch on the current
+    stream, which under capture is the capture stream) and the graph
+    replayed between two events, so no Python runs inside the timed span."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def card_floors(dev):
+    """What no kernel on this card goes below, in milliseconds: an empty
+    grid's launch (device time), and one dependent read from shared memory
+    and from L2 (one thread following a cyclic permutation, the time per
+    read taken from two walk lengths)."""
+    L = _build.lib()
+    floor = device_time(lambda: _build.launch((), L.pgm_empty), 50)
+    rng = np.random.RandomState(5)
+    sink = torch.zeros(1, dtype=torch.int32, device=dev)
+    read = {}
+    for where, n in (("shared", 4096), ("l2", 1 << 20)):
+        order = rng.permutation(n)
+        nxt = np.empty(n, np.int32)
+        nxt[order] = np.roll(order, -1)
+        perm = torch.from_numpy(nxt).to(dev)
+        t = [min(time_cuda(lambda: _build.launch(
+            (), L.pgm_chase_latency, _build.ptr(perm), n, steps,
+            int(where == "shared"), _build.ptr(sink)), 2) for _ in range(2))
+            for steps in (20000, 220000)]
+        read[where] = (t[1] - t[0]) / 200000
+    return {"launch_floor_ms": floor, "shared_read_ms": read["shared"],
+            "l2_read_ms": read["l2"]}
+
+
+def bounds(preps, steps, Lm):
     """Per kernel (bound_ms, bound_by) on these pairs: the larger of bytes
     over the memory rate and float32 operations over the peak rate, from
-    the pairs' own sizes; the chase counts the cells its walks visited."""
+    the pairs' own sizes; the chase counts the steps its walks took."""
     by = {k: 0.0 for k in KERNELS}
     op = {k: 0.0 for k in KERNELS}
-    walk = packed[:, 2 * Lm + META_LEN]
     for k, p in enumerate(preps):
         n1, n2, dim = p.g1.size, p.g2.size, p.g1.dim
         e1 = int(np.count_nonzero(p.C1 < COST_INF))
@@ -520,9 +675,9 @@ def bounds(preps, packed, Lm):
                            + 4 * p.R * n1 + n1 + n2)
         # 3 per match candidate, 7 per edge of a Y or X move, 12 per cell
         op["fill"] += 3 * e1 * e2 + 7 * (e1 * n2 + e2 * n1) + 12 * n1 * n2
-        steps = int(walk[k])
-        by["chase"] += 4 * (row_width(Lm) + 3 * steps + 3 * p.R * nl1 * nl2)
-        op["chase"] += 12 * nl1 * nl2 + 10 * steps
+        by["chase"] += 4 * (row_width(Lm) + 3 * int(steps[k])
+                            + 3 * p.R * nl1 * nl2)
+        op["chase"] += 12 * nl1 * nl2 + 10 * int(steps[k])
     out = {}
     for k in KERNELS:
         tb, to = by[k] / HBM_BYTES_S * 1e3, op[k] / F32_FLOPS * 1e3
@@ -530,13 +685,13 @@ def bounds(preps, packed, Lm):
     return out
 
 
-def kernel_times(items, dev, reps_kernel, reps_plain):
+def kernel_times(items, dev, reps_kernel, reps_plain, floors):
     preps, bt = pack(items, dev)
     t2, v2 = s_prep(bt.g2T, bt.M, bt.pi)
     Sd = s_plane(bt.g1T, t2, v2, bt.pi, bt.mi, bt.n1, bt.n2)
     fa = fill_args(Sd, bt)
     fo = fill(*fa, bt.plan)
-    ca = (bt.O1, bt.O2, bt.C1T, bt.C2T, bt.R1T, bt.R2T, bt.iv, bt.par, bt.Lm)
+    ca = chase_args(bt)
     sa = (bt.g1T, t2, v2, bt.pi, bt.mi, bt.n1, bt.n2)
     runs = {
         "s_prep": (lambda: s_prep(bt.g2T, bt.M, bt.pi),
@@ -545,7 +700,7 @@ def kernel_times(items, dev, reps_kernel, reps_plain):
         "fill": (lambda: fill(*fa, bt.plan), lambda: fill_torch(*fa)),
         "chase": (lambda: chase(fo, *ca), lambda: chase_torch(fo, *ca)),
     }
-    out = {}
+    out, dev_ms = {}, {}
     for k, (kern, plain) in runs.items():
         a, b = kern(), plain()
         for name, x, y in zip(("out%d" % i for i in range(9)),
@@ -554,6 +709,8 @@ def kernel_times(items, dev, reps_kernel, reps_plain):
             diff(k, x, y, name)
         out[k] = (time_cuda(plain, reps_plain), time_cuda(kern, reps_kernel),
                   time_cuda(plain, reps_plain), time_cuda(kern, reps_kernel))
+        dev_ms[k] = min(device_time(kern, reps_kernel),
+                        device_time(kern, reps_kernel))
     # K1's yardstick: one batched product and one matrix-vector product
     # compute t2 and v2 in another summation order; the port never calls it
     Mt = bt.M.transpose(1, 2).contiguous()
@@ -562,8 +719,26 @@ def kernel_times(items, dev, reps_kernel, reps_plain):
     t2l, v2l = lib()
     lib_err = max(float((t2l - t2).abs().max()),
                   float((v2l[:, 0] - v2).abs().max()))
-    library = {"s_prep": min(time_cuda(lib, reps_kernel),
-                             time_cuda(lib, reps_kernel))}
+    # call times of two calls this short are the host's launch path: many
+    # repetitions, K1 and the library call in turns
+    turns = [(time_cuda(runs["s_prep"][0], CALL_REPS),
+              time_cuda(lib, CALL_REPS)) for _ in range(3)]
+    k1_call = min(t[0] for t in turns)
+    out["s_prep"] = (out["s_prep"][0], k1_call, out["s_prep"][2], k1_call)
+    library = {"s_prep": min(t[1] for t in turns)}
+    library_dev = {"s_prep": min(device_time(lib, reps_kernel),
+                                 device_time(lib, reps_kernel))}
+    # K1 + K2 as the main path launches them: one call, with and without
+    # programmatic dependent launch, beside the two wrappers in turn
+    two = lambda: s_plane(bt.g1T, *s_prep(bt.g2T, bt.M, bt.pi), bt.pi, bt.mi,
+                          bt.n1, bt.n2)
+    exact = {}
+    reps_s = CALL_REPS if dev_ms["s"] < 0.1 else reps_kernel
+    for name, fn in (("two_wrappers", two),
+                     ("one_call", lambda: exact_s_with(False, bt)),
+                     ("one_call_pdl", lambda: exact_s_with(True, bt))):
+        exact[name] = (min(time_cuda(fn, reps_s) for _ in range(2)),
+                       min(device_time(fn, reps_kernel) for _ in range(2)))
     # K3 under every cluster size, and with the rings in global memory
     B, _, n1max = bt.g1T.shape
     cands = max(gdp._cands_per_cell(p) for p in preps)
@@ -574,7 +749,27 @@ def kernel_times(items, dev, reps_kernel, reps_plain):
     band = -(-n1max // bt.plan.blocks_per_pair)
     gl = bt.plan._replace(smem_rings=False, smem_bytes=2 * band * 4)
     sweep["global_rings"] = time_cuda(lambda: fill(*fa, gl), reps_kernel)
-    packed = chase(fo, *ca).cpu().numpy()
+    # X1 under other code windows and block sizes (device time), and what
+    # its walks did under the launch's own plan
+    opmax, n2max = bt.O1.shape[1], bt.g2T.shape[2]
+    own = plan_chase(B, opmax, n1max, n2max)
+    chase_sweep = {}
+    for win, threads in ((8, own.threads), (16, own.threads),
+                         (MAX_WINDOW, own.threads), (own.win, 32),
+                         (own.win, 256)):
+        pl = plan_chase(B, opmax, n1max, n2max, win=win, threads=threads)
+        chase_sweep["w%d_t%d" % (win, threads)] = device_time(
+            lambda: chase(fo, *ca, plan=pl), reps_kernel)
+    stats = torch.zeros((B, N_STATS), dtype=torch.int32, device=dev)
+    chase(fo, *ca, stats=stats)
+    stats = stats.cpu().numpy()
+    steps = int(stats[:, 0].max())
+    walks = {"plan": "w%d_t%d" % (own.win, own.threads),
+             "longest_steps": steps, "steps": int(stats[:, 0].sum()),
+             "window_fills": int(stats[:, 1].sum()),
+             "boundary_replays": int(stats[:, 2].sum())}
+    chain = {"chain_ms": steps * floors["shared_read_ms"],
+             "chain_l2_ms": steps * floors["l2_read_ms"]}
     t0 = time.perf_counter()
     for g1, g2, m, sc in items:
         checks.native_align(g1, g2, m, sc)
@@ -582,13 +777,19 @@ def kernel_times(items, dev, reps_kernel, reps_plain):
     t0 = time.perf_counter()
     gdp.align_pairs_device(items, dev)
     batch_ms = (time.perf_counter() - t0) * 1e3
-    return {"times": out, "bounds": bounds(preps, packed, bt.Lm),
-            "library": library, "library_max_abs_diff": lib_err,
-            "plan": bt.plan, "sweep": sweep, "native_ms": native_ms,
-            "batch_ms": batch_ms}
+    return {"times": out, "device": dev_ms,
+            "bounds": bounds(preps, stats[:, 0], bt.Lm), "chain": chain,
+            "library": library, "library_device": library_dev,
+            "library_max_abs_diff": lib_err, "exact_s": exact,
+            "s_prep_plan": plan_s_prep(*bt.g2T.shape), "walks": walks,
+            "chase_sweep": chase_sweep, "plan": bt.plan, "sweep": sweep,
+            "native_ms": native_ms, "batch_ms": batch_ms}
 
 
 def phase_times(dev, largest, root):
+    t0 = time.perf_counter()
+    floors = card_floors(dev)
+    say("floors", t0, **{k: "%.7f" % v for k, v in floors.items()})
     t0 = time.perf_counter()
     rng = np.random.RandomState(3)
     m = checks.model(0.5)
@@ -600,26 +801,32 @@ def phase_times(dev, largest, root):
               "8x2000x1980": (long_items, 5, 1),
               "fam500_root": (root, 5, 1)}
     res = {}
+    cj = lambda d: json.dumps(d, separators=(",", ":"))
+    r4 = lambda d: {k: round(v, 5) for k, v in d.items()}
     for shape, (items, rk, rp) in shapes.items():
-        r = res[shape] = kernel_times(items, dev, rk, rp)
+        r = res[shape] = kernel_times(items, dev, rk, rp, floors)
         n1 = [it[0].size for it in items]
         n2 = [it[1].size for it in items]
         say("times:" + shape, t0, pairs=len(items),
             nodes="%d-%dx%d-%d" % (min(n1), max(n1), min(n2), max(n2)),
             native_align_node_ms="%.3f" % r["native_ms"],
             device_batch_wall_ms="%.3f" % r["batch_ms"],
-            fill_plan=json.dumps(r["plan"]._asdict(), separators=(",", ":")),
-            fill_sweep_ms=json.dumps({k: round(v, 4)
-                                      for k, v in r["sweep"].items()},
-                                     separators=(",", ":")),
-            bound_ms=json.dumps({k: "%.5f/%s" % v
-                                 for k, v in r["bounds"].items()},
-                                separators=(",", ":")),
+            fill_plan=cj(r["plan"]._asdict()),
+            fill_sweep_ms=cj(r4(r["sweep"])),
+            bound_ms=cj({k: "%.5f/%s" % v for k, v in r["bounds"].items()}),
+            chase_chain_bound_ms=cj(r4(r["chain"])),
+            chase_walks=cj(r["walks"]),
+            chase_sweep_device_ms=cj(r4(r["chase_sweep"])),
+            s_prep_plan=cj(r["s_prep_plan"]._asdict()),
             s_prep_library_ms="%.4f" % r["library"]["s_prep"],
+            s_prep_library_device_ms="%.4f" % r["library_device"]["s_prep"],
             s_prep_library_max_abs_diff="%.3g" % r["library_max_abs_diff"],
+            exact_s_call_device_ms=cj({k: "%.4f/%.4f" % v
+                                        for k, v in r["exact_s"].items()}),
+            device_ms=cj(r4(r["device"])),
             **{k: "%.4f/%.4f/%.4f/%.4f" % v for k, v in r["times"].items()})
         t0 = time.perf_counter()
-    return res
+    return res, floors
 
 
 def main():
@@ -632,8 +839,8 @@ def main():
     with tempfile.TemporaryDirectory(dir=OUT) as tmp:
         launches, largest = phase_fam100(dev, tmp)
         phase_walls(tmp)
-        launches500, root = phase_levels(dev, tmp)
-    res = phase_times(dev, largest, root)
+        launches500, root, sum500, sum500_dev = phase_levels(dev, tmp)
+    res, floors = phase_times(dev, largest, root)
     stray = [m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "prographmsa_tpu" or m.startswith("prographmsa_tpu.")]
@@ -646,16 +853,30 @@ def main():
     for k, (src, repl) in KERNELS.items():
         row = {"name": k, "route": "cuda", "source": src, "replaces": repl,
                "launches": launches[k], "launches_fam500": launches500[k],
-               "max_abs_err": max_err[k]}
+               "max_abs_err": max_err[k],
+               "ms_fam500_levels_sum": sum500[k],
+               "device_ms_fam500_levels_sum": sum500_dev[k],
+               "launch_floor_ms": floors["launch_floor_ms"]}
         for shape, r in res.items():
             p0, k0, p1, k1 = r["times"][k]
             sfx = "" if shape == main_shape else "_" + shape
             row["ms" + sfx] = min(k0, k1)
+            row["device_ms" + sfx] = r["device"][k]
             row["plain_ms" + sfx] = min(p0, p1)
             row["bound_ms" + sfx], row["bound_by" + sfx] = r["bounds"][k]
             row["library_ms" + sfx] = r["library"].get(k)
+            row["library_device_ms" + sfx] = r["library_device"].get(k)
             if k == "fill":
                 row["blocks_per_pair" + sfx] = r["plan"].blocks_per_pair
+            if k == "chase":
+                row["chain_ms" + sfx] = r["chain"]["chain_ms"]
+                row["chain_l2_ms" + sfx] = r["chain"]["chain_l2_ms"]
+                row["window_fills" + sfx] = r["walks"]["window_fills"]
+                row["steps" + sfx] = r["walks"]["steps"]
+            if k == "s":
+                for name_, (call, device) in r["exact_s"].items():
+                    row["exact_s_%s_ms%s" % (name_, sfx)] = call
+                    row["exact_s_%s_device_ms%s" % (name_, sfx)] = device
         kern.append(row)
     print(json.dumps({"kernels": kern}))
     print(smi)

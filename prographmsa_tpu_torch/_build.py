@@ -10,6 +10,8 @@ contraction is off (``--fmad=false``) and division is IEEE.
 
 Every kernel wrapper counts its launches in ``LAUNCHES`` (one per launch,
 nowhere else), so a run can show which kernels the main path went through.
+A C entry that launches two kernels (``pgm_exact_s``: K1 then K2) counts
+one launch of each.
 """
 
 from __future__ import annotations
@@ -103,18 +105,25 @@ def build() -> str:
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is not None:
             return _lib
         L = ctypes.CDLL(build())
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        L.pgm_s_prep.argtypes = [p, p, p, i, i, i, p, p, p]
+        L.pgm_s_prep.argtypes = [p, p, p] + [i] * 6 + [p, p, p]
         L.pgm_s.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, f, f, p, p]
+        L.pgm_exact_s.argtypes = ([p] * 7 + [i] * 5 + [f] * 3 + [i] * 4
+                                  + [p, p, p])
+        L.pgm_empty.argtypes = [p]
         L.pgm_fill.argtypes = [p] * 7 + [i] * 11 + [p] * 12
         L.pgm_fill_max_clusters.argtypes = [i, i, i, ctypes.POINTER(i)]
         L.pgm_fill_max_clusters.restype = i
-        L.pgm_chase.argtypes = [p] * 14 + [i] * 7 + [p, p]
-        for fn in (L.pgm_s_prep, L.pgm_s, L.pgm_fill, L.pgm_chase):
+        L.pgm_chase.argtypes = [p] * 14 + [i] * 10 + [p, p, p]
+        L.pgm_chase_latency.argtypes = [p, i, i, i, p, p]
+        for fn in (L.pgm_s_prep, L.pgm_s, L.pgm_exact_s, L.pgm_empty,
+                   L.pgm_fill, L.pgm_chase, L.pgm_chase_latency):
             fn.restype = ctypes.c_int
         L.pgm_error_string.argtypes = [i]
         L.pgm_error_string.restype = ctypes.c_char_p
@@ -122,21 +131,36 @@ def lib() -> ctypes.CDLL:
         return L
 
 
-def launch(name: str, fn, *args) -> None:
-    """Call one C entry (which launches its kernel on the current stream and
-    returns cudaGetLastError()); raise on a refused launch, else count it."""
+def _current_stream() -> int:
+    """The current CUDA stream's handle.  ``torch.cuda.current_stream()``
+    builds a Stream object on every call (about 5 us on an H100 host, as
+    much as a kernel launch); the raw query is used where torch has it."""
     import torch
 
-    rc = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(torch.cuda.current_device())
+    return torch.cuda.current_stream().cuda_stream
+
+
+def launch(names, fn, *args) -> None:
+    """Call one C entry (which launches its kernels on the current stream and
+    returns cudaGetLastError()); raise on a refused launch, else count one
+    launch of each kernel in ``names`` (a kernel's name, or a tuple of them;
+    an empty tuple for an entry that is no kernel of the port)."""
+    rc = fn(*args, _current_stream())
     if rc != 0:
         msg = lib().pgm_error_string(rc).decode()
         raise RuntimeError("CUDA kernel %s failed to launch: %s (%d)"
-                           % (name, msg, rc))
-    LAUNCHES[name] += 1
+                           % (names, msg, rc))
+    for name in ((names,) if isinstance(names, str) else names):
+        LAUNCHES[name] += 1
 
 
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t) -> int | None:
+    """The tensor's address (``None`` is the null pointer), as the
+    ``c_void_p`` argument types take it."""
+    return None if t is None else t.data_ptr()
 
 
 def check_args(kernel: str, *specs) -> None:

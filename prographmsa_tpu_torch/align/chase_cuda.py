@@ -15,24 +15,73 @@ so a batch costs one device-to-host copy.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from .. import _build
 from ..device import on_cuda
-from .fill_cuda import FillOut
+from .fill_cuda import MAX_SLOTS, FillOut
 from .slots import (BIG, COST_INF, EV_CAP, NEG, STATE_M, STATE_X,
                     STATE_Y)
 
 META_SCORE, META_LEN, META_FAIL_REP, META_FAIL_CHASE = range(4)
 N_META = 4
+N_STATS = 3                     # per pair: steps, window fills, boundary
+                                # replays
+WINDOW = 32                     # cells a side of the code window
+MAX_WINDOW = 64
+MAX_WARPS = 8                   # the kernel's block of at most 256 threads
+MIN_WARPS = 4                   # what the masks and the row's stores of even
+                                # a short pair gain from (H100: 3% at 210 rows)
+SLOT_PAIRS_PER_WARP = 256       # end-transition slot pairs one warp takes
+ROWS_PER_WARP = 512             # rows of n1max whose padding one warp writes
 
 
 def row_width(Lm: int) -> int:
     return 2 * Lm + N_META + 1 + 4 * EV_CAP
 
 
-def chase(fo: FillOut, O1, O2, C1T, C2T, R1T, R2T, iv, par, Lm: int):
-    """X1 on CUDA tensors, ``chase_torch`` on CPU tensors."""
+class ChasePlan(NamedTuple):
+    """How one launch of X1 is laid out on the card: one block of
+    ``threads`` threads per pair, a code window of ``win`` x ``win`` cells."""
+    blocks: int
+    threads: int
+    win: int
+    smem_bytes: int             # dynamic shared memory per block
+
+
+def plan_chase(B: int, opmax: int, n1max: int, n2max: int,
+               win: int = WINDOW, threads: int | None = None) -> ChasePlan:
+    """Layout of X1 for B pairs with at most ``opmax`` offset slots a side,
+    ``n1max`` rows and ``n2max`` columns.  The walk itself runs on one warp;
+    more warps (a power of two, at most MAX_WARPS) join for what splits over
+    threads: the end transition's opmax x opmax slot pairs, the repeat
+    masks of every node and the stores of the padded row, which grow with
+    n1max.  ``win`` (even) and ``threads`` override the defaults (checks
+    and measurements only)."""
+    if opmax > MAX_SLOTS:
+        raise ValueError("%d offset slots > %d" % (opmax, MAX_SLOTS))
+    if not 2 <= win <= MAX_WINDOW or win % 2:
+        raise ValueError("window %d not even or outside 2..%d"
+                         % (win, MAX_WINDOW))
+    if threads is None:
+        want = max(-(-opmax * opmax // SLOT_PAIRS_PER_WARP),
+                   -(-n1max // ROWS_PER_WARP), MIN_WARPS)
+        threads = 32 * min(MAX_WARPS, 1 << (want - 1).bit_length())
+    if threads % 32 or not 32 <= threads <= 32 * MAX_WARPS:
+        raise ValueError("threads %d" % threads)
+    # int wcode[win * win], o1s[MAX_SLOTS], o2s[MAX_SLOTS]; one uint64 mask
+    # of repeat slots per row and per column
+    smem = 4 * (win * win + 2 * MAX_SLOTS) + 8 * (n1max + n2max)
+    return ChasePlan(B, threads, win, smem)
+
+
+def chase(fo: FillOut, O1, O2, C1T, C2T, R1T, R2T, iv, par, Lm: int,
+          plan: ChasePlan | None = None, stats=None):
+    """X1 on CUDA tensors (laid out by ``plan``, default ``plan_chase``),
+    ``chase_torch`` on CPU tensors.  ``stats``, an int32 [B, N_STATS] CUDA
+    tensor, receives the kernel's per-pair counts."""
     args = (O1, O2, C1T, C2T, R1T, R2T, iv, par)
     if not on_cuda(*fo, *args):
         return chase_torch(fo, *args, Lm)
@@ -52,20 +101,25 @@ def chase(fo: FillOut, O1, O2, C1T, C2T, R1T, R2T, iv, par, Lm: int):
                       (R1T, torch.uint8, (B, opmax, n1max)),
                       (R2T, torch.uint8, (B, opmax, n2max)),
                       (iv, torch.int32, (B, 8)), (par, torch.float32, (B, 8)))
+    if stats is not None:
+        on_cuda(stats, fo.codes)
+        _build.check_args("chase", (stats, torch.int32, (B, N_STATS)))
+    if plan is None:
+        plan = plan_chase(B, opmax, n1max, n2max)
     out = torch.empty((B, row_width(Lm)), dtype=torch.int32,
                       device=fo.codes.device)
-    L = _build.lib()
     p = _build.ptr
-    _build.launch("chase", L.pgm_chase, p(fo.codes), p(fo.ringM),
+    _build.launch("chase", _build.lib().pgm_chase, p(fo.codes), p(fo.ringM),
                   p(fo.ringX), p(fo.ringY), p(fo.stripeY), p(fo.stripeX),
                   p(O1), p(O2), p(C1T), p(C2T), p(R1T), p(R2T), p(iv),
-                  p(par), B, D, n1max, n2max, opmax, Rmax, Lm, p(out))
+                  p(par), B, D, n1max, n2max, opmax, Rmax, Lm, plan.threads,
+                  plan.win, plan.smem_bytes, p(out), p(stats))
     return out
 
 
 def chase_torch(fo: FillOut, O1, O2, C1T, C2T, R1T, R2T, iv, par, Lm: int):
     """The plain PyTorch version of X1: every pair walks in lockstep, one
-    batch of tensor ops per step (the kernel gives each pair a thread)."""
+    batch of tensor ops per step (the kernel gives each pair a block)."""
     codes, ringW, ringY, ringX, ringM, stripeY, stripeX = fo
     B, D, n1max = codes.shape
     P, n2max = C2T.shape[1], C2T.shape[2]

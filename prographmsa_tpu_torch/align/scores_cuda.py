@@ -20,41 +20,115 @@ Output Sdiag [B, D, n1max] f32 with D = n1max + n2max - 1:
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from .. import _build
 from ..device import on_cuda
+from .fill_cuda import SMS
 from .scores import _LS_A, _LS_B, _LS_C
 from .slots import NEG
 
 MAX_DIM = 64
 _NAN_X86_BITS = -4194304          # 0xFFC00000 as int32
+_LS = (float(_LS_A), float(_LS_B), float(_LS_C))
+DGROUPS = (8, 4, 2, 1)            # outputs d per thread K1 is compiled for
+XVECS = (4, 1)                    # nodes x per thread (4: 16-byte loads)
+FILL_THREADS = 128                # a launch fills the card when it has this
+                                  # many threads for every SM
 
 
-def exact_s(g1T, g2T, M, pi, mi, n1, n2):
-    """Sdiag for a batch: K1 then K2 (kernels on CUDA tensors, their plain
-    versions on CPU tensors)."""
-    t2, v2 = s_prep(g2T, M, pi)
-    return s_plane(g1T, t2, v2, pi, mi, n1, n2)
+class SPrepPlan(NamedTuple):
+    """How one launch of K1 is laid out on the card: a grid of
+    (x-tiles, d-groups, pairs) blocks of ``threads`` threads, a thread
+    owning ``xvec`` neighbouring nodes x and ``dgroup`` outputs d."""
+    threads: int
+    dgroup: int
+    xvec: int
+    grid: tuple
 
 
-def s_prep(g2T, M, pi):
-    """K1: (t2 [B, dim, n2max], v2 [B, n2max])."""
+@functools.lru_cache(maxsize=256)
+def plan_s_prep(B: int, dim: int, n2max: int, sms: int = SMS,
+                dgroup: int | None = None,
+                xvec: int | None = None) -> SPrepPlan:
+    """Layout of K1 for B pairs of n2max nodes and dim states.  A thread
+    takes as many chains (dgroup x xvec) as still leave FILL_THREADS threads
+    for every one of the card's ``sms`` SMs, so that a launch of one small
+    pair spreads over the card and a large launch runs long interleaved
+    chains; 16-byte loads along x (xvec 4) need n2max to be a multiple of 4
+    and are preferred at equal work per thread.  ``dgroup`` and ``xvec``
+    override the choice (checks and measurements only)."""
+    if not 1 <= dim <= MAX_DIM:
+        raise ValueError("dim %d outside 1..%d" % (dim, MAX_DIM))
+    xvecs = [v for v in XVECS if v == 1 or n2max % 4 == 0]
+    if xvec is not None:
+        if xvec not in xvecs:
+            raise ValueError("xvec %d with n2max %d" % (xvec, n2max))
+        xvecs = [xvec]
+    if dgroup is not None and dgroup not in DGROUPS:
+        raise ValueError("dgroup %d not in %s" % (dgroup, DGROUPS))
+    dgroups = [g for g in DGROUPS
+               if g == 1 or g < 2 * dim] if dgroup is None else [dgroup]
+
+    def n_threads(g, v):
+        return B * -(-dim // g) * -(-n2max // v)
+
+    layouts = sorted(((g, v) for v in xvecs for g in dgroups),
+                     key=lambda gv: (-gv[0] * gv[1], -gv[1]))
+    g, v = next((gv for gv in layouts
+                 if n_threads(*gv) >= sms * FILL_THREADS), layouts[-1])
+    nx = -(-n2max // v)
+    threads = min(128, max(32, 1 << (nx - 1).bit_length()))
+    return SPrepPlan(threads, g, v, (-(-nx // threads), -(-dim // g), B))
+
+
+def exact_s(g1T, g2T, M, pi, mi, n1, n2, pdl: bool = True):
+    """Sdiag for a batch: K1 then K2, from one call into the library and one
+    workspace for t2 and v2 on CUDA tensors, K2 as K1's programmatic
+    dependent (``pdl`` False, a plain second launch, is for checks and
+    measurements only); their plain versions on CPU tensors."""
+    if not on_cuda(g1T, g2T, M, pi, mi, n1, n2):
+        return exact_s_torch(g1T, g2T, M, pi, mi, n1, n2)
+    B, dim, n1max = g1T.shape
+    n2max = g2T.shape[2]
+    f32 = torch.float32
+    _build.check_args("exact_s", (g1T, f32, (B, dim, n1max)),
+                      (g2T, f32, (B, dim, n2max)), (M, f32, (B, dim, dim)),
+                      (pi, f32, (B, dim)), (mi, f32, (B,)),
+                      (n1, torch.int32, (B,)), (n2, torch.int32, (B,)))
+    plan = plan_s_prep(B, dim, n2max)
+    D = n1max + n2max - 1
+    ws = torch.empty(B * (dim + 1) * n2max, dtype=f32, device=g1T.device)
+    Sdiag = torch.empty((B, D, n1max), dtype=f32, device=g1T.device)
+    p = _build.ptr
+    _build.launch(("s_prep", "s"), _build.lib().pgm_exact_s, p(g1T), p(g2T),
+                  p(M), p(pi), p(mi), p(n1), p(n2), B, dim, n1max, n2max, D,
+                  *_LS, plan.threads, plan.dgroup, plan.xvec,
+                  int(pdl), p(ws), p(Sdiag))
+    return Sdiag
+
+
+def s_prep(g2T, M, pi, plan: SPrepPlan | None = None):
+    """K1: (t2 [B, dim, n2max], v2 [B, n2max]), laid out by ``plan``
+    (default ``plan_s_prep``)."""
     if not on_cuda(g2T, M, pi):
         return s_prep_torch(g2T, M, pi)
     B, dim, n2max = g2T.shape
-    if not 1 <= dim <= MAX_DIM:
-        raise ValueError("dim %d outside 1..%d" % (dim, MAX_DIM))
     _build.check_args("s_prep", (g2T, torch.float32, (B, dim, n2max)),
                       (M, torch.float32, (B, dim, dim)),
                       (pi, torch.float32, (B, dim)))
-    L = _build.lib()
+    if plan is None:
+        plan = plan_s_prep(B, dim, n2max)
     t2 = torch.empty((B, dim, n2max), dtype=torch.float32, device=g2T.device)
     v2 = torch.empty((B, n2max), dtype=torch.float32, device=g2T.device)
     p = _build.ptr
-    _build.launch("s_prep", L.pgm_s_prep, p(g2T), p(M), p(pi), B, dim, n2max,
-                  p(t2), p(v2))
+    _build.launch("s_prep", _build.lib().pgm_s_prep, p(g2T), p(M), p(pi), B,
+                  dim, n2max, plan.threads, plan.dgroup, plan.xvec, p(t2),
+                  p(v2))
     return t2, v2
 
 
@@ -71,12 +145,10 @@ def s_plane(g1T, t2, v2, pi, mi, n1, n2):
                       (mi, torch.float32, (B,)), (n1, torch.int32, (B,)),
                       (n2, torch.int32, (B,)))
     D = n1max + n2max - 1
-    L = _build.lib()
     Sdiag = torch.empty((B, D, n1max), dtype=torch.float32, device=g1T.device)
     p = _build.ptr
-    _build.launch("s", L.pgm_s, p(g1T), p(t2), p(v2), p(pi), p(mi), p(n1),
-                  p(n2), B, dim, n1max, n2max, D, float(_LS_A), float(_LS_B),
-                  float(_LS_C), p(Sdiag))
+    _build.launch("s", _build.lib().pgm_s, p(g1T), p(t2), p(v2), p(pi),
+                  p(mi), p(n1), p(n2), B, dim, n1max, n2max, D, *_LS, p(Sdiag))
     return Sdiag
 
 

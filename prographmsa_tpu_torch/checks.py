@@ -142,3 +142,211 @@ def native_or_host(g1, g2, m, sc, host_aln):
     Python host result."""
     aln = native_align(g1, g2, m, sc)
     return host_aln if aln is None else aln
+
+
+def lanes_first_min(diffs, lanes: int):
+    """The index X1's threads agree on for "first index at the minimal
+    difference": thread l scans the candidates l, l + lanes, ... in order
+    (the first one it meets is taken whatever its value, then strict
+    improvement), and a butterfly keeps the smaller value and, at equal
+    values, the smaller index (csrc/chase.cu: warp_first_min)."""
+    none = np.iinfo(np.int32).max
+    val = np.full(lanes, np.inf, np.float32)
+    idx = np.full(lanes, none, np.int64)
+    for k, d in enumerate(np.asarray(diffs, np.float32)):
+        lane = k % lanes
+        if idx[lane] == none or d < val[lane]:
+            val[lane], idx[lane] = d, k
+    off = lanes // 2
+    while off:
+        peer = np.arange(lanes) ^ off
+        ov, oi = val[peer], idx[peer]
+        take = (ov < val) | ((ov == val) & (oi < idx))
+        val, idx = np.where(take, ov, val), np.where(take, oi, idx)
+        off //= 2
+    assert (idx == idx[0]).all()
+    return int(idx[0])
+
+
+def chase_window_model(fo, O1, O2, C1T, C2T, R1T, R2T, iv, par, Lm: int,
+                       win: int, lanes: int = 32):
+    """A scalar numpy model of kernel X1 (csrc/chase.cu) on CPU tensors: the
+    same end transition and boundary replays split over ``lanes`` threads,
+    and the same walk that reads codes only through a window of ``win`` x
+    ``win`` cells ending at the cell it was last filled at, refilled when a
+    step leaves it, and repeat flags through one mask of slots per node.
+    Cells the kernel does not load are poisoned, so a read outside the
+    window shows.  Returns (packed rows
+    [B, row_width(Lm)] int32, stats [B, 3] int64: steps, window fills,
+    boundary replays)."""
+    from .align.chase_cuda import row_width
+    from .align.slots import BIG, COST_INF, EV_CAP, NEG, STATE_M, STATE_X, STATE_Y
+
+    f32 = np.float32
+    a_ = lambda t: t.numpy()
+    codes, ringM, ringY, ringX = a_(fo.codes), a_(fo.ringM), a_(fo.ringY), a_(fo.ringX)
+    sYa, sXa = a_(fo.stripeY), a_(fo.stripeX)
+    O1, O2, C1T, C2T, R1T, R2T, iv, par = (a_(t) for t in (O1, O2, C1T, C2T,
+                                                            R1T, R2T, iv, par))
+    B, D, n1max = codes.shape
+    neg, big, cinf = f32(NEG), f32(BIG), f32(COST_INF)
+    poison = -(1 << 30)
+    out = np.zeros((B, row_width(Lm)), np.int64)
+    stats = np.zeros((B, 3), np.int64)
+    with np.errstate(over="ignore", invalid="ignore"):
+        for b in range(B):
+            n1, n2, nl1, nl2, R, shb = (int(v) for v in iv[b, :6])
+            ge, gi, si, em, eg, es = (f32(par[b, k]) for k in (0, 1, 3, 4, 5, 6))
+            smask = (1 << shb) - 1
+            o1, o2, c1, c2, r1, r2 = O1[b], O2[b], C1T[b], C2T[b], R1T[b], R2T[b]
+            cd, sY, sX = codes[b], sYa[b], sXa[b]
+            dfull = n1 + n2 - 2
+
+            def tail(ring, y, x):
+                d = y + x
+                if (y == 0 and x == 0) or d > dfull or d <= dfull - R:
+                    return neg
+                return ring[b, d % R, y]
+
+            cands, valid = [], []
+            for ab in range(nl1 * nl2):
+                i, j = nl1 - 1 - ab // nl2, nl2 - 1 - ab % nl2
+                yp, xp = n1 - 1 - int(o1[i]), n2 - 1 - int(o2[j])
+                cy, cx = c1[i, n1 - 1], c2[j, n2 - 1]
+                yc, xc = max(yp, 0), max(xp, 0)
+                ok = yp >= 0 and xp >= 0 and cy < cinf and cx < cinf
+                both0 = yp == 0 and xp == 0
+                cands += [((tail(ringM, yc, xc) + em) - cy) - cx,
+                          ((tail(ringY, yc, xc) + eg) - cy) - cx,
+                          ((tail(ringX, yc, xc) + eg) - cy) - cx,
+                          ((es - cy) - cx) if both0 else -big]
+                valid += [ok, ok, ok, ok and both0]
+            Wend = max([c for c, v in zip(cands, valid) if v], default=-big)
+            Wend = f32(max(Wend, -big))
+            kbest = lanes_first_min(
+                [abs(f32(Wend - c)) if v else big
+                 for c, v in zip(cands, valid)], lanes)
+            t0, ab0 = kbest & 3, kbest >> 2
+            i0, j0 = nl1 - 1 - ab0 // nl2, nl2 - 1 - ab0 % nl2
+            y, x = max(n1 - 1 - int(o1[i0]), 0), max(n2 - 1 - int(o2[j0]), 0)
+            st = (STATE_M, STATE_Y, STATE_X, STATE_X)[t0]
+            if t0 == 3:
+                y = x = 0
+            m1, m2, ev = [], [], [[], [], [], []]
+            fail_rep = fail_chase = False
+            win_state = {}
+
+            def push(v1, v2):
+                m1.append(v1)
+                m2.append(v2)
+
+            def event(side, nxt, cur):
+                nonlocal fail_rep
+                if len(ev[0]) >= EV_CAP:
+                    fail_rep = True
+                    return
+                for lst, v in zip(ev, (side, nxt, cur, len(m1))):
+                    lst.append(v)
+
+            def fill_window(yc, xc):
+                yb, xb = yc - win + 1, xc - win + 1
+                ylo, xlo = max(yb, 0), max(xb, 0)
+                wcode = np.full((win, win), poison, np.int64)
+                for yy in range(ylo, yc + 1):
+                    for xx in range(xlo, xc + 1):
+                        wcode[yy - yb, xx - xb] = cd[yy + xx, yy]
+                win_state.update(yb=yb, xb=xb, wcode=wcode)
+                stats[b, 1] += 1
+
+            def code_at(yy, xx):
+                w = win_state
+                v = w["wcode"][yy - w["yb"], xx - w["xb"]]
+                assert v != poison and yy >= w["yb"] and xx >= w["xb"]
+                return int(v)
+
+            def replay(pos, o, c, stripe, nl):
+                cs = stripe[pos]
+                diffs = []
+                for a in range(nl):
+                    k = nl - 1 - a
+                    pb = pos - int(o[k])
+                    ck, sv = c[k, pos], stripe[max(pb, 0)]
+                    ok = pb >= 0 and ck < cinf
+                    v_ext = neg if pb == 0 else sv
+                    v_open = si if pb == 0 else sv
+                    diffs += [abs(f32(cs - f32(f32(v_ext + ge) - ck))) if ok else big,
+                              abs(f32(cs - f32(f32(v_open + gi) - ck))) if ok else big]
+                stats[b, 2] += 1
+                kB = lanes_first_min(diffs, lanes)
+                return nl - 1 - (kB >> 1), kB & 1
+
+            bits = lambda r, nl: [sum(int(r[k, at] != 0) << k
+                                      for k in range(nl))
+                                  for at in range(r.shape[1])]
+            rm1, rm2 = bits(r1, nl1), bits(r2, nl2)
+            push(n1 - 1, n2 - 1)
+            if (rm1[n1 - 1] >> i0) & 1:
+                event(1, y, n1 - 1)
+            if (rm2[n2 - 1] >> j0) & 1:
+                event(2, x, n2 - 1)
+            if (x or y) and not fail_rep:
+                push(-1 if st == STATE_X else y, -1 if st == STATE_Y else x)
+            fill_window(y, x)
+            code = code_at(y, x)
+            it = 0
+            while (y or x) and not fail_rep and it < Lm:
+                isY, isX = st == STATE_Y, st == STATE_X
+                i_sel, j_sel, rw = (code >> shb) & smask, code & smask, 1
+                if isY:
+                    if x == 0:
+                        i_sel, rw = replay(y, o1, c1, sY, nl1)
+                    else:
+                        rw = (code >> (2 * shb)) & 1
+                        i_sel = (code >> (2 * shb + 1)) & smask
+                elif isX:
+                    if y == 0:
+                        j_sel, rw = replay(x, o2, c2, sX, nl2)
+                    else:
+                        rw = (code >> (3 * shb + 1)) & 1
+                        j_sel = (code >> (3 * shb + 2)) & smask
+                if (not isX and i_sel >= nl1) or (not isY and j_sel >= nl2):
+                    fail_chase = True
+                    break
+                ny = y if isX else max(y - int(o1[i_sel]), 0)
+                nx = x if isY else max(x - int(o2[j_sel]), 0)
+                w = win_state
+                if not isX and (rm1[y] >> i_sel) & 1:
+                    event(1, ny, y)
+                if not isY and (rm2[x] >> j_sel) & 1:
+                    event(2, nx, x)
+                if fail_rep:
+                    break
+                if ny < w["yb"] or nx < w["xb"]:
+                    fill_window(ny, nx)
+                code2 = code_at(ny, nx)
+                nst = ((code2 >> (4 * shb + 2)) & 3) if rw == 1 else (
+                    STATE_Y if isY else STATE_X)
+                if ny or nx:
+                    if len(m1) >= Lm - 1:
+                        fail_chase = True
+                        break
+                    push(-1 if nst == STATE_X else ny,
+                         -1 if nst == STATE_Y else nx)
+                y, x, st, code = ny, nx, nst, code2
+                it += 1
+            if not fail_rep and (y or x):
+                fail_chase = True
+            if not fail_rep and not fail_chase:
+                push(0, 0)
+            stats[b, 0] = it
+            row = out[b]
+            row[:2 * Lm] = -2
+            row[:len(m1)] = m1
+            row[Lm:Lm + len(m2)] = m2
+            row[2 * Lm:2 * Lm + 4] = (int(np.array(Wend, f32).view(np.int32)),
+                                      len(m1), fail_rep, fail_chase)
+            row[2 * Lm + 4] = len(ev[0])
+            for r, lst in enumerate(ev):
+                lo = 2 * Lm + 5 + r * EV_CAP
+                row[lo:lo + len(lst)] = lst
+    return out.astype(np.int32), stats

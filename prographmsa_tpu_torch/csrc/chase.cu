@@ -1,9 +1,8 @@
 // Code-chase traceback of the graph-pair DP (kernel X1).
 //
 // Replaces the XLA device program of prographmsa_tpu/align/graph_dp_pallas.py
-// (_make_chase.chase, a batch-lockstep while_loop, and _jit_pack).  One
-// thread owns one pair and walks that pair's decision-code plane serially
-// from the end cell to the origin:
+// (_make_chase.chase, a batch-lockstep while_loop, and _jit_pack).  A pair's
+// decision-code plane is walked serially from the end cell to the origin:
 //   * the end transition replays the host argmin (align/backtrack.py:75-108)
 //     from the fill's final M/X/Y rings, candidates in descending slot order
 //     (g1 outer, g2 inner, then M, Y, X, skip), first index on ties;
@@ -23,15 +22,53 @@
 // ev[1 + 4*EV_CAP] = (count, sides, next nodes, current nodes, positions):
 // the whole batch comes back in one copy.
 //
-// Bound on the H100: latency of the dependent code reads along one walk
-// (one L2 load per step); the batch gives one warp lane per pair, so a level
-// of B pairs fills B lanes.  That is enough for the main path today.
+// What bounds X1 on the H100: the walk is one chain of dependent reads, a
+// step's code word gives the next cell.  Bytes and operations are nothing;
+// the floor is the longest walk's steps times one dependent read, and the
+// design decides which memory that read goes to.  A pair gets a block
+// (chase_cuda.plan_chase: one warp, more where the end transition has many
+// slot pairs or the row is long), and:
+//   * the code plane comes to the walk.  The walk only moves to smaller y
+//     and smaller x, so a window of win x win cells ending at the current
+//     cell holds every cell the next steps can reach until one leaves it.
+//     The warp fills the window with cp.async, one cell per lane along each
+//     diagonal (the plane is diagonal-major, so these are contiguous); a
+//     step inside the window is a shared-memory read.  A step that leaves
+//     the window, by however far, restarts it at the target cell;
+//   * the slot offsets O1/O2 sit in shared memory, and the block packs the
+//     repeat flags once into one 64-bit mask of slots per node, so a step's
+//     chain is shared-memory reads only and its flag reads (which depend on
+//     the cell alone, not on the decoded slot) leave the chain;
+//   * with memory out of the way a step is bound by its own chain of
+//     dependent instructions, so the decode is written without branches
+//     (the three states' fields are selected, not branched to) and the two
+//     rare cases, a boundary replay and a repeat step, are one test each;
+//   * all 32 lanes of the walking warp run the walk in lockstep on the same
+//     state, so the parts that split over lanes need no hand-over: window
+//     fills, the boundary replays (each lane scans a strided subset of the
+//     slots in index order, a shuffle butterfly keeps the smaller
+//     difference and then the smaller index, which is the sequential
+//     "first index at the minimum"), and the mapping stores, which are
+//     kept one entry per lane and leave 32 at a time as one coalesced store;
+//   * the end transition splits its nl1 x nl2 slot pairs over the whole
+//     block the same way (a plain max first, then first index at minimal
+//     |Wend - c|), and the whole block writes the -2 padding, meta and
+//     events as coalesced stores.
+// pgm_chase_latency times one dependent read from shared memory and from L2
+// on the card, for the chain bound chip_smoke.py states.
+#include <limits.h>
+
 #include "common.cuh"
 
 namespace {
 
+constexpr int kMaxSlots = 64;
+constexpr int kMaxWarps = 8;
+constexpr int kTailLen = 4 + 1 + 4 * PGM_EV_CAP;  // meta and events
+constexpr int kLatencyWords = 4096;
+
 struct Pair {
-  int n1, n2, nl1, nl2, R, shb, n1max, n2max, dfull;
+  int n1, n2, nl1, nl2, R, n1max, n2max, dfull;
 };
 
 __device__ __forceinline__ float tail_at(const float* ring, const Pair& p,
@@ -42,24 +79,117 @@ __device__ __forceinline__ float tail_at(const float* ring, const Pair& p,
   return ring[(size_t)(d % p.R) * p.n1max + y];
 }
 
-__global__ void chase_kernel(
+__device__ __forceinline__ void cp_async4(unsigned smem_addr,
+                                          const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// Butterfly over the warp: smaller value, then smaller key.
+__device__ __forceinline__ void warp_first_min(float& v, int& key) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+    const int ok = __shfl_xor_sync(0xffffffffu, key, off);
+    if (ov < v || (ov == v && ok < key)) {
+      v = ov;
+      key = ok;
+    }
+  }
+}
+
+// The same over the block; every thread gets the result.
+__device__ __forceinline__ void block_first_min(float& v, int& key,
+                                                float* red_v, int* red_k) {
+  warp_first_min(v, key);
+  const int nwarps = blockDim.x >> 5;
+  if (nwarps == 1) return;
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) {
+    red_v[threadIdx.x >> 5] = v;
+    red_k[threadIdx.x >> 5] = key;
+  }
+  __syncthreads();
+  v = red_v[0];
+  key = red_k[0];
+  for (int w = 1; w < nwarps; ++w) {
+    const float ov = red_v[w];
+    const int ok = red_k[w];
+    if (ov < v || (ov == v && ok < key)) {
+      v = ov;
+      key = ok;
+    }
+  }
+}
+
+// The four end candidates (M, Y, X, skip) of slot pair `ab` in visit order
+// and which of them are valid.
+struct EndCand {
+  float c[4];
+  bool valid, both0;
+};
+
+__device__ __forceinline__ EndCand end_cands(
+    int ab, const Pair& p, const int* o1s, const int* o2s, const float* c1,
+    const float* c2, const float* rM, const float* rY, const float* rX,
+    float em, float eg, float es) {
+  const float big = pgm_f(PGM_BIG_BITS);
+  const float cinf = pgm_f(PGM_COST_INF_BITS);
+  const int a = ab / p.nl2, bb = ab - a * p.nl2;
+  const int i = p.nl1 - 1 - a, j = p.nl2 - 1 - bb;
+  const int yp = p.n1 - 1 - o1s[i], xp = p.n2 - 1 - o2s[j];
+  const float cy = c1[(size_t)i * p.n1max + p.n1 - 1];
+  const float cx = c2[(size_t)j * p.n2max + p.n2 - 1];
+  const int yc = max(yp, 0), xc = max(xp, 0);
+  EndCand e;
+  e.valid = yp >= 0 && xp >= 0 && cy < cinf && cx < cinf;
+  e.both0 = yp == 0 && xp == 0;
+  e.c[0] = __fsub_rn(__fsub_rn(__fadd_rn(tail_at(rM, p, yc, xc), em), cy), cx);
+  e.c[1] = __fsub_rn(__fsub_rn(__fadd_rn(tail_at(rY, p, yc, xc), eg), cy), cx);
+  e.c[2] = __fsub_rn(__fsub_rn(__fadd_rn(tail_at(rX, p, yc, xc), eg), cy), cx);
+  e.c[3] = e.both0 ? __fsub_rn(__fsub_rn(es, cy), cx) : -big;
+  return e;
+}
+
+// One block per pair.  Dynamic shared memory, for a window of `win` cells a
+// side: int wcode[win * win], o1s[64], o2s[64]; uint64 rm1[n1max],
+// rm2[n2max] (bit i: slot i's edge into the node is a repeat edge).
+// `stats`, if not null, receives per pair (steps, window fills, boundary
+// replays).
+__global__ void __launch_bounds__(32 * kMaxWarps) chase_kernel(
     const int* __restrict__ codes, const float* __restrict__ ringM,
     const float* __restrict__ ringX, const float* __restrict__ ringY,
     const float* __restrict__ stripeY, const float* __restrict__ stripeX,
     const int* __restrict__ O1, const int* __restrict__ O2,
     const float* __restrict__ C1T, const float* __restrict__ C2T,
     const uint8_t* __restrict__ R1T, const uint8_t* __restrict__ R2T,
-    const int* __restrict__ iv, const float* __restrict__ par, int B, int D,
-    int n1max, int n2max, int opmax, int Rmax, int Lm, int* __restrict__ out) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const int W = 2 * Lm + 4 + 1 + 4 * PGM_EV_CAP;
-  int* m1 = out + (size_t)b * W;
+    const int* __restrict__ iv, const float* __restrict__ par, int D,
+    int n1max, int n2max, int opmax, int Rmax, int Lm, int win,
+    int* __restrict__ out, int* __restrict__ stats) {
+  extern __shared__ int dyn[];
+  __shared__ float red_v[kMaxWarps];
+  __shared__ int red_k[kMaxWarps];
+  __shared__ int evs[1 + 4 * PGM_EV_CAP];
+  __shared__ int fin[4];  // Wend bits, length, fail_rep, fail_chase
+
+  int* wcode = dyn;
+  int* o1s = wcode + win * win;
+  int* o2s = o1s + kMaxSlots;
+  unsigned long long* rm1 =
+      reinterpret_cast<unsigned long long*>(o2s + kMaxSlots);
+  unsigned long long* rm2 = rm1 + n1max;
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x, T = blockDim.x;
+  int lane;  // read once: the compiler would re-read the register per step
+  asm volatile("mov.u32 %0, %%laneid;" : "=r"(lane));
+  int* m1 = out + (size_t)b * (2 * Lm + kTailLen);
   int* m2 = m1 + Lm;
   int* meta = m2 + Lm;
-  int* ev = meta + 4;
-  for (int k = 0; k < Lm; ++k) m1[k] = m2[k] = -2;
-  for (int k = 0; k < 4 + 1 + 4 * PGM_EV_CAP; ++k) meta[k] = 0;
 
   const int* ivb = iv + b * PGM_IV_W;
   Pair p;
@@ -68,197 +198,280 @@ __global__ void chase_kernel(
   p.nl1 = ivb[PGM_IV_NL1];
   p.nl2 = ivb[PGM_IV_NL2];
   p.R = ivb[PGM_IV_R];
-  p.shb = ivb[PGM_IV_SHB];
   p.n1max = n1max;
   p.n2max = n2max;
   p.dfull = p.n1 + p.n2 - 2;
+  const int shb = ivb[PGM_IV_SHB];
   const float* pb = par + b * PGM_PAR_W;
   const float ge = pb[0], gi = pb[1], si = pb[3];
   const float em = pb[4], eg = pb[5], es = pb[6];
   const float neg = pgm_f(PGM_NEG_BITS);
   const float big = pgm_f(PGM_BIG_BITS);
   const float cinf = pgm_f(PGM_COST_INF_BITS);
-  const int smask = (1 << p.shb) - 1;
-  const int* o1 = O1 + b * opmax;
-  const int* o2 = O2 + b * opmax;
+  const float inf = __int_as_float(0x7f800000);
+  const int smask = (1 << shb) - 1;
   const float* c1 = C1T + (size_t)b * opmax * n1max;
   const float* c2 = C2T + (size_t)b * opmax * n2max;
   const uint8_t* r1 = R1T + (size_t)b * opmax * n1max;
   const uint8_t* r2 = R2T + (size_t)b * opmax * n2max;
   const int* cd = codes + (size_t)b * D * n1max;
   const size_t roff = (size_t)b * Rmax * n1max;
+  const float* rM = ringM + roff;
+  const float* rY = ringY + roff;
+  const float* rX = ringX + roff;
   const float* sY = stripeY + (size_t)b * n1max;
   const float* sX = stripeX + (size_t)b * n2max;
 
+  for (int t = tid; t < kMaxSlots; t += T) {
+    o1s[t] = (t < opmax) ? O1[b * opmax + t] : 1;
+    o2s[t] = (t < opmax) ? O2[b * opmax + t] : 1;
+  }
+  for (int t = tid; t < 1 + 4 * PGM_EV_CAP; t += T) evs[t] = 0;
+  for (int yy = tid; yy < p.n1; yy += T) {
+    unsigned long long m = 0;
+#pragma unroll 4
+    for (int i = 0; i < p.nl1; ++i)
+      m |= (unsigned long long)(r1[(size_t)i * n1max + yy] != 0) << i;
+    rm1[yy] = m;
+  }
+  for (int xx = tid; xx < p.n2; xx += T) {
+    unsigned long long m = 0;
+#pragma unroll 4
+    for (int j = 0; j < p.nl2; ++j)
+      m |= (unsigned long long)(r2[(size_t)j * n2max + xx] != 0) << j;
+    rm2[xx] = m;
+  }
+  __syncthreads();
+
   // ---- end transition: Wend = max of the valid candidates, then the first
-  // candidate at minimal |Wend - c| (GraphAlign.h:304-353)
+  // candidate at minimal |Wend - c| (GraphAlign.h:304-353).  Thread tid
+  // takes the slot pairs tid, tid + T, ... in visit order.
+  const int nab = p.nl1 * p.nl2;
   float Wend = -big;
-  int kbest = -1;
-  for (int pass = 0; pass < 2; ++pass) {
-    float best = 0.0f;
-    int k = 0;
-    for (int a = 0; a < p.nl1; ++a) {
-      const int i = p.nl1 - 1 - a;
-      const int yp = p.n1 - 1 - o1[i];
-      const float cy = c1[(size_t)i * n1max + p.n1 - 1];
-      for (int bb = 0; bb < p.nl2; ++bb, k += 4) {
-        const int j = p.nl2 - 1 - bb;
-        const int xp = p.n2 - 1 - o2[j];
-        const float cx = c2[(size_t)j * n2max + p.n2 - 1];
-        const int yc = max(yp, 0), xc = max(xp, 0);
-        const bool valid = yp >= 0 && xp >= 0 && cy < cinf && cx < cinf;
-        const bool both0 = yp == 0 && xp == 0;
-        float c[4];
-        c[0] = __fsub_rn(__fsub_rn(__fadd_rn(tail_at(ringM + roff, p, yc, xc), em), cy), cx);
-        c[1] = __fsub_rn(__fsub_rn(__fadd_rn(tail_at(ringY + roff, p, yc, xc), eg), cy), cx);
-        c[2] = __fsub_rn(__fsub_rn(__fadd_rn(tail_at(ringX + roff, p, yc, xc), eg), cy), cx);
-        c[3] = both0 ? __fsub_rn(__fsub_rn(es, cy), cx) : -big;
-        for (int t = 0; t < 4; ++t) {
-          const bool v = valid && (t < 3 || both0);
-          if (pass == 0) {
-            if (v && c[t] > Wend) Wend = c[t];
-          } else {
-            const float diff = v ? fabsf(__fsub_rn(Wend, c[t])) : big;
-            if (kbest < 0 || diff < best) { best = diff; kbest = k + t; }
-          }
-        }
+  for (int ab = tid; ab < nab; ab += T) {
+    const EndCand e =
+        end_cands(ab, p, o1s, o2s, c1, c2, rM, rY, rX, em, eg, es);
+    for (int t = 0; t < 4; ++t)
+      if (e.valid && (t < 3 || e.both0) && e.c[t] > Wend) Wend = e.c[t];
+  }
+  {
+    float nv = -Wend;  // the block's max as a min; keys play no part
+    int nk = 0;
+    block_first_min(nv, nk, red_v, red_k);
+    Wend = -nv;
+  }
+  float best = inf;
+  int kbest = INT_MAX;
+  for (int ab = tid; ab < nab; ab += T) {
+    const EndCand e =
+        end_cands(ab, p, o1s, o2s, c1, c2, rM, rY, rX, em, eg, es);
+    for (int t = 0; t < 4; ++t) {
+      const bool v = e.valid && (t < 3 || e.both0);
+      const float diff = v ? fabsf(__fsub_rn(Wend, e.c[t])) : big;
+      if (kbest == INT_MAX || diff < best) {
+        best = diff;
+        kbest = 4 * ab + t;
       }
     }
   }
-  const int t0 = kbest & 3, ab = kbest >> 2;
-  const int i0 = p.nl1 - 1 - ab / p.nl2;
-  const int j0 = p.nl2 - 1 - ab % p.nl2;
-  int y = max(p.n1 - 1 - o1[i0], 0);
-  int x = max(p.n2 - 1 - o2[j0], 0);
-  int st = (t0 == 0) ? PGM_ST_M : ((t0 == 1) ? PGM_ST_Y : PGM_ST_X);
-  if (t0 == 3) y = x = 0;
+  block_first_min(best, kbest, red_v, red_k);
 
-  int pos = 0, evn = 0, fail_rep = 0, fail_chase = 0;
-  m1[0] = p.n1 - 1;
-  m2[0] = p.n2 - 1;
-  pos = 1;
-  // y-side mark, then x-side mark, both before the push of (y, x)
-  const int rep0[2] = {r1[(size_t)i0 * n1max + p.n1 - 1],
-                       r2[(size_t)j0 * n2max + p.n2 - 1]};
-  const int nxt0[2] = {y, x}, cur0[2] = {p.n1 - 1, p.n2 - 1};
-  for (int s = 0; s < 2; ++s) {
-    if (!rep0[s]) continue;
-    if (evn >= PGM_EV_CAP) { fail_rep = 1; continue; }
-    ev[1 + evn] = s + 1;
-    ev[1 + PGM_EV_CAP + evn] = nxt0[s];
-    ev[1 + 2 * PGM_EV_CAP + evn] = cur0[s];
-    ev[1 + 3 * PGM_EV_CAP + evn] = pos;
-    ++evn;
-  }
-  if ((x != 0 || y != 0) && !fail_rep) {
-    m1[pos] = (st == PGM_ST_X) ? -1 : y;
-    m2[pos] = (st == PGM_ST_Y) ? -1 : x;
-    ++pos;
-  }
-  int code = cd[(size_t)(y + x) * n1max + y];
+  if (tid < 32) {
+    // ---- the walk: warp 0, every lane on the same state
+    const int t0 = kbest & 3, ab0 = kbest >> 2;
+    const int i0 = p.nl1 - 1 - ab0 / p.nl2;
+    const int j0 = p.nl2 - 1 - ab0 % p.nl2;
+    int y = max(p.n1 - 1 - o1s[i0], 0);
+    int x = max(p.n2 - 1 - o2s[j0], 0);
+    int st = (t0 == 0) ? PGM_ST_M : ((t0 == 1) ? PGM_ST_Y : PGM_ST_X);
+    if (t0 == 3) y = x = 0;
 
-  for (int it = 0; (y != 0 || x != 0) && !fail_rep && it < Lm; ++it) {
-    const bool isY = st == PGM_ST_Y, isX = st == PGM_ST_X;
-    int i_sel = (code >> p.shb) & smask;  // M fields
-    int j_sel = code & smask;
-    int rw = 1;
-    if (isY) {
-      if (x == 0) {  // boundary replay along g1
-        float bestB = 0.0f;
-        int kB = -1;
-        const float csY = sY[y];
-        for (int a = 0; a < p.nl1; ++a) {
-          const int i = p.nl1 - 1 - a;
-          const int ypb = y - o1[i];
-          const float cyb = c1[(size_t)i * n1max + y];
-          const float sy = sY[max(ypb, 0)];
-          const float yv = (ypb == 0) ? neg : sy;
-          const float wv = (ypb == 0) ? si : sy;
-          const bool ok = ypb >= 0 && cyb < cinf;
-          const float d1 = ok ? fabsf(__fsub_rn(csY, __fsub_rn(__fadd_rn(yv, ge), cyb))) : big;
-          const float d2 = ok ? fabsf(__fsub_rn(csY, __fsub_rn(__fadd_rn(wv, gi), cyb))) : big;
-          if (kB < 0 || d1 < bestB) { bestB = d1; kB = 2 * a; }
-          if (d2 < bestB) { bestB = d2; kB = 2 * a + 1; }
-        }
-        i_sel = p.nl1 - 1 - (kB >> 1);
-        rw = kB & 1;
-      } else {
-        rw = (code >> (2 * p.shb)) & 1;
-        i_sel = (code >> (2 * p.shb + 1)) & smask;
+    int pos = 0, evn = 0, fail_rep = 0, fail_chase = 0;
+    int nbuf = 0, bm1 = 0, bm2 = 0;  // lane k holds entry pos - nbuf + k
+    int yb = 0, xb = 0;              // the window's first row and column
+    int wofs = 0;                    // cell (y, x) is wcode[wofs + y * win + x]
+    int n_fill = 0, n_replay = 0, it = 0;
+
+    auto push = [&](int v1, int v2) {
+      if (lane == nbuf) {
+        bm1 = v1;
+        bm2 = v2;
       }
-    } else if (isX) {
-      if (y == 0) {  // boundary replay along g2
-        float bestB = 0.0f;
-        int kB = -1;
-        const float csX = sX[x];
-        for (int a = 0; a < p.nl2; ++a) {
-          const int j = p.nl2 - 1 - a;
-          const int xpb = x - o2[j];
-          const float cxb = c2[(size_t)j * n2max + x];
-          const float sx = sX[max(xpb, 0)];
-          const float xv = (xpb == 0) ? neg : sx;
-          const float wv = (xpb == 0) ? si : sx;
-          const bool ok = xpb >= 0 && cxb < cinf;
-          const float d1 = ok ? fabsf(__fsub_rn(csX, __fsub_rn(__fadd_rn(xv, ge), cxb))) : big;
-          const float d2 = ok ? fabsf(__fsub_rn(csX, __fsub_rn(__fadd_rn(wv, gi), cxb))) : big;
-          if (kB < 0 || d1 < bestB) { bestB = d1; kB = 2 * a; }
-          if (d2 < bestB) { bestB = d2; kB = 2 * a + 1; }
-        }
-        j_sel = p.nl2 - 1 - (kB >> 1);
-        rw = kB & 1;
-      } else {
-        rw = (code >> (3 * p.shb + 1)) & 1;
-        j_sel = (code >> (3 * p.shb + 2)) & smask;
-      }
-    }
-    if ((!isX && i_sel >= p.nl1) || (!isY && j_sel >= p.nl2)) {
-      fail_chase = 1;
-      break;
-    }
-    const int ny = isX ? y : max(y - o1[i_sel], 0);
-    const int nx = isY ? x : max(x - o2[j_sel], 0);
-    const int rep[2] = {isX ? 0 : r1[(size_t)i_sel * n1max + y],
-                        isY ? 0 : r2[(size_t)j_sel * n2max + x]};
-    const int nxt[2] = {ny, nx}, cur[2] = {y, x};
-    for (int s = 0; s < 2; ++s) {
-      if (!rep[s]) continue;
-      if (evn >= PGM_EV_CAP) { fail_rep = 1; continue; }
-      ev[1 + evn] = s + 1;
-      ev[1 + PGM_EV_CAP + evn] = nxt[s];
-      ev[1 + 2 * PGM_EV_CAP + evn] = cur[s];
-      ev[1 + 3 * PGM_EV_CAP + evn] = pos;
-      ++evn;
-    }
-    if (fail_rep) break;
-    const int code2 = cd[(size_t)(ny + nx) * n1max + ny];
-    const int wst2 = (code2 >> (4 * p.shb + 2)) & 3;
-    const int nst = (rw == 1) ? wst2 : (isY ? PGM_ST_Y : PGM_ST_X);
-    if (ny != 0 || nx != 0) {
-      if (pos >= Lm - 1) { fail_chase = 1; break; }
-      m1[pos] = (nst == PGM_ST_X) ? -1 : ny;
-      m2[pos] = (nst == PGM_ST_Y) ? -1 : nx;
+      ++nbuf;
       ++pos;
+      if (nbuf == 32) {
+        m1[pos - 32 + lane] = bm1;
+        m2[pos - 32 + lane] = bm2;
+        nbuf = 0;
+      }
+    };
+    auto event = [&](int side, int nxt, int cur) {
+      if (evn >= PGM_EV_CAP) {
+        fail_rep = 1;
+        return;
+      }
+      if (lane == 0) {
+        evs[1 + evn] = side;
+        evs[1 + PGM_EV_CAP + evn] = nxt;
+        evs[1 + 2 * PGM_EV_CAP + evn] = cur;
+        evs[1 + 3 * PGM_EV_CAP + evn] = pos;
+      }
+      ++evn;
+    };
+    // The window ending at cell (yc, xc): rows yc - win + 1 .. yc, columns
+    // xc - win + 1 .. xc, as far as they exist.
+    auto fill_window = [&](int yc, int xc) {
+      __syncwarp();
+      yb = yc - win + 1;
+      xb = xc - win + 1;
+      wofs = -(yb * win + xb);
+      const int ylo = max(yb, 0), xlo = max(xb, 0);
+      const int rows = yc - ylo + 1, cols = xc - xlo + 1;
+      // lane r owns row ylo + r; at turn t every lane is on diagonal
+      // ylo + xlo + t, so one turn's copies are contiguous in the plane
+      for (int r = lane; r < rows; r += 32) {
+        const int yy = ylo + r;
+        const int* src = cd + (size_t)(ylo + xlo) * n1max + yy;
+        unsigned dst = (unsigned)__cvta_generic_to_shared(
+            wcode + (yy - yb) * win + (xlo - xb) - r);
+        for (int t = 0; t < rows + cols - 1; ++t, src += n1max, dst += 4)
+          if ((unsigned)(t - r) < (unsigned)cols) cp_async4(dst, src);
+      }
+      cp_async_wait_all();
+      __syncwarp();
+      ++n_fill;
+    };
+
+    push(p.n1 - 1, p.n2 - 1);
+    // y-side mark, then x-side mark, both before the push of (y, x)
+    if ((rm1[p.n1 - 1] >> i0) & 1) event(1, y, p.n1 - 1);
+    if ((rm2[p.n2 - 1] >> j0) & 1) event(2, x, p.n2 - 1);
+    if ((x != 0 || y != 0) && !fail_rep)
+      push((st == PGM_ST_X) ? -1 : y, (st == PGM_ST_Y) ? -1 : x);
+    fill_window(y, x);
+    int code = wcode[wofs + y * win + x];
+
+    // shifts of the code word's fields: M (i, j), Y (re-entry bit, i),
+    // X (re-entry bit, j), the state a re-entry goes to
+    const int shYrw = 2 * shb, shYi = 2 * shb + 1;
+    const int shXrw = 3 * shb + 1, shXj = 3 * shb + 2, shW = 4 * shb + 2;
+    int last = Lm - 1;  // in a register, not re-read from the parameters
+    asm volatile("" : "+r"(last));
+    for (; (y != 0 || x != 0) && !fail_rep && it < Lm; ++it) {
+      const bool isY = st == PGM_ST_Y, isX = st == PGM_ST_X;
+      const unsigned long long f1 = rm1[y], f2 = rm2[x];
+      int i_sel = (code >> (isY ? shYi : shb)) & smask;
+      int j_sel = (code >> (isX ? shXj : 0)) & smask;
+      int rw = isY ? (code >> shYrw) & 1 : (isX ? (code >> shXrw) & 1 : 1);
+      // the offset tables are kMaxSlots long, so any decoded slot reads
+      int ny = max(y - (isX ? 0 : o1s[i_sel]), 0);
+      int nx = max(x - (isY ? 0 : o2s[j_sel]), 0);
+      const bool boundary = isY ? x == 0 : (isX && y == 0);
+      const bool bad = (!isX & (i_sel >= p.nl1)) | (!isY & (j_sel >= p.nl2));
+      // one test for everything rare; the cases then go in the host's order
+      if (boundary | bad | ((f1 | f2) != 0) | (ny < yb) | (nx < xb)) {
+        if (boundary) {
+          // boundary replay along g1 (state Y) or g2 (state X): the slots
+          // split over the lanes
+          const int at = isY ? y : x, nl = isY ? p.nl1 : p.nl2;
+          const int nmax = isY ? n1max : n2max;
+          const int* os = isY ? o1s : o2s;
+          const float* cs = isY ? c1 : c2;
+          const float* stripe = isY ? sY : sX;
+          float bestB = inf;
+          int kB = INT_MAX;
+          const float cur = stripe[at];
+          for (int a = lane; a < nl; a += 32) {
+            const int k = nl - 1 - a;
+            const int pb = at - os[k];
+            const float ck = cs[(size_t)k * nmax + at];
+            const float sv = stripe[max(pb, 0)];
+            const float ext = (pb == 0) ? neg : sv;
+            const float opn = (pb == 0) ? si : sv;
+            const bool ok = pb >= 0 && ck < cinf;
+            const float d1 = ok ? fabsf(__fsub_rn(cur, __fsub_rn(__fadd_rn(ext, ge), ck))) : big;
+            const float d2 = ok ? fabsf(__fsub_rn(cur, __fsub_rn(__fadd_rn(opn, gi), ck))) : big;
+            if (kB == INT_MAX || d1 < bestB) { bestB = d1; kB = 2 * a; }
+            if (d2 < bestB) { bestB = d2; kB = 2 * a + 1; }
+          }
+          warp_first_min(bestB, kB);
+          if (isY) i_sel = nl - 1 - (kB >> 1);
+          else j_sel = nl - 1 - (kB >> 1);
+          rw = kB & 1;
+          ++n_replay;
+        }
+        if ((!isX && i_sel >= p.nl1) || (!isY && j_sel >= p.nl2)) {
+          fail_chase = 1;
+          break;
+        }
+        ny = max(y - (isX ? 0 : o1s[i_sel]), 0);
+        nx = max(x - (isY ? 0 : o2s[j_sel]), 0);
+        if (!isX && ((f1 >> i_sel) & 1)) event(1, ny, y);
+        if (!isY && ((f2 >> j_sel) & 1)) event(2, nx, x);
+        if (fail_rep) break;
+        if (ny < yb || nx < xb) fill_window(ny, nx);
+      }
+      const int code2 = wcode[wofs + ny * win + nx];
+      const int nst =
+          (rw == 1) ? ((code2 >> shW) & 3) : (isY ? PGM_ST_Y : PGM_ST_X);
+      if (ny != 0 || nx != 0) {
+        if (pos >= last) {
+          fail_chase = 1;
+          break;
+        }
+        push((nst == PGM_ST_X) ? -1 : ny, (nst == PGM_ST_Y) ? -1 : nx);
+      }
+      y = ny;
+      x = nx;
+      st = nst;
+      code = code2;
     }
-    y = ny;
-    x = nx;
-    st = nst;
-    code = code2;
+    if (!fail_rep && (y != 0 || x != 0)) fail_chase = 1;
+    if (!fail_rep && !fail_chase) push(0, 0);
+    if (lane < nbuf) {
+      m1[pos - nbuf + lane] = bm1;
+      m2[pos - nbuf + lane] = bm2;
+    }
+    if (lane == 0) {
+      fin[0] = __float_as_int(Wend);
+      fin[1] = pos;
+      fin[2] = fail_rep;
+      fin[3] = fail_chase;
+      evs[0] = evn;
+      if (stats != nullptr) {
+        stats[3 * b] = it;
+        stats[3 * b + 1] = n_fill;
+        stats[3 * b + 2] = n_replay;
+      }
+    }
   }
-  if (!fail_rep && (y != 0 || x != 0)) fail_chase = 1;
-  if (!fail_rep && !fail_chase) {
-    m1[pos] = 0;
-    m2[pos] = 0;
-    ++pos;
+  __syncthreads();
+
+  // ---- the rest of the row, by the whole block
+  for (int k = fin[1] + tid; k < Lm; k += T) m1[k] = m2[k] = -2;
+  for (int k = tid; k < kTailLen; k += T) meta[k] = (k < 4) ? fin[k] : evs[k - 4];
+}
+
+// One thread follows `steps` dependent reads through a cyclic permutation
+// `perm` of 0 .. n - 1, held in shared memory (n == kLatencyWords) or in
+// global memory read past L1 (n sized to stay in L2).
+__global__ void latency_kernel(const int* __restrict__ perm, int n, int steps,
+                               int in_shared, int* sink) {
+  __shared__ int s[kLatencyWords];
+  int idx = 0;
+  if (in_shared) {
+    for (int t = 0; t < kLatencyWords; ++t) s[t] = perm[t];
+    for (int k = 0; k < steps; ++k) idx = s[idx];
+  } else {
+    for (int k = 0; k < steps; ++k) idx = __ldcg(perm + idx);
   }
-  meta[0] = __float_as_int(Wend);
-  meta[1] = pos;
-  meta[2] = fail_rep;
-  meta[3] = fail_chase;
-  ev[0] = evn;
+  *sink = idx + n;
 }
 
 }  // namespace
 
+// One block of `threads` threads per pair, a code window of `win` cells a
+// side in `smem_bytes` of dynamic shared memory (chase_cuda.plan_chase).
 extern "C" int pgm_chase(const int* codes, const float* ringM,
                          const float* ringX, const float* ringY,
                          const float* stripeY, const float* stripeX,
@@ -266,11 +479,29 @@ extern "C" int pgm_chase(const int* codes, const float* ringM,
                          const float* C2T, const uint8_t* R1T,
                          const uint8_t* R2T, const int* iv, const float* par,
                          int B, int D, int n1max, int n2max, int opmax,
-                         int Rmax, int Lm, int* out, void* stream) {
-  const int threads = 32;
-  chase_kernel<<<(B + threads - 1) / threads, threads, 0,
-                 (cudaStream_t)stream>>>(
+                         int Rmax, int Lm, int threads, int win,
+                         int smem_bytes, int* out, int* stats, void* stream) {
+  const int need = 4 * (win * win + 2 * kMaxSlots) + 8 * (n1max + n2max);
+  if (opmax > kMaxSlots || threads < 32 || threads > 32 * kMaxWarps ||
+      threads % 32 != 0 || win < 2 || win % 2 != 0 || smem_bytes < need)
+    return (int)cudaErrorInvalidValue;
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        chase_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  chase_kernel<<<B, threads, smem_bytes, (cudaStream_t)stream>>>(
       codes, ringM, ringX, ringY, stripeY, stripeX, O1, O2, C1T, C2T, R1T,
-      R2T, iv, par, B, D, n1max, n2max, opmax, Rmax, Lm, out);
+      R2T, iv, par, D, n1max, n2max, opmax, Rmax, Lm, win, out, stats);
+  return (int)cudaGetLastError();
+}
+
+// `perm`: a cyclic permutation of 0 .. n - 1; n is 4096 with `in_shared`.
+extern "C" int pgm_chase_latency(const int* perm, int n, int steps,
+                                 int in_shared, int* sink, void* stream) {
+  if (n < 1 || (in_shared && n != kLatencyWords))
+    return (int)cudaErrorInvalidValue;
+  latency_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(perm, n, steps, in_shared,
+                                                    sink);
   return (int)cudaGetLastError();
 }

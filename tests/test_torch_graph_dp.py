@@ -21,11 +21,12 @@ from prographmsa_tpu.align import graph_dp_pallas as ref_gdp
 from prographmsa_tpu_torch import checks
 from prographmsa_tpu_torch.align import graph_dp_cuda as gdp
 from prographmsa_tpu_torch.align.chase_cuda import (
-    META_FAIL_CHASE, META_FAIL_REP, N_META, chase, chase_torch, row_width)
+    MAX_WARPS, MAX_WINDOW, META_FAIL_CHASE, META_FAIL_REP, META_LEN, N_META,
+    N_STATS, chase, chase_torch, plan_chase, row_width)
 from prographmsa_tpu_torch.align.fill_cuda import (
-    LANE_THREADS, MAX_BLOCKS_PER_PAIR, MAX_THREADS, SMEM_BYTES, SMS,
+    LANE_THREADS, MAX_BLOCKS_PER_PAIR, MAX_SLOTS, MAX_THREADS, SMEM_BYTES, SMS,
     WIDE_BLOCKS_PER_PAIR, card_limits, fill, fill_torch, plan_fill)
-from prographmsa_tpu_torch.align.slots import FLOOR
+from prographmsa_tpu_torch.align.slots import BIG, EV_CAP, FLOOR
 from prographmsa_tpu_torch.align.scores_cuda import exact_s
 
 
@@ -373,6 +374,172 @@ def test_plan_fill_moves_rings_to_global_memory_when_they_do_not_fit():
     assert plan_fill(1, 4096, 256, 1.0, blocks_per_pair=2).blocks_per_pair == 2
 
 
+def _sequential_first_min(diffs):
+    """The rule X1 replays from the host argmin: the first candidate is
+    taken whatever its value, then strict improvement."""
+    best, at = 0.0, -1
+    for k, d in enumerate(diffs.tolist()):
+        if at < 0 or d < best:
+            best, at = d, k
+    return at
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 32])
+@pytest.mark.parametrize("case", ["random", "ties", "all_big",
+                                  "one_valid_last"])
+def test_lane_split_first_min_equals_sequential_scan(case, lanes):
+    """X1's end transition and boundary replays split their candidates over
+    threads; the index they agree on is the sequential scan's."""
+    rng = np.random.RandomState(len(case) * 41 + lanes)
+    n = rng.randint(1, 150)
+    diffs = np.abs(rng.randn(n)).astype(np.float32)
+    if case == "ties":
+        diffs = rng.randint(0, 3, n).astype(np.float32)
+    if case == "all_big":                 # no valid candidate: the first wins
+        diffs[:] = np.float32(BIG)
+    if case == "one_valid_last":
+        diffs[:] = np.float32(BIG)
+        diffs[-1] = np.float32(0.5)
+    assert checks.lanes_first_min(diffs, lanes) == _sequential_first_min(diffs)
+    assert _sequential_first_min(diffs) == int(np.argmin(diffs))
+
+
+# (pairs, most offset slots a side, largest n1, largest n2) of the timed shapes
+# (fam100's largest level, 8 x 2000 x 1980 chains, fam500's root pair) and
+# the edges of what the kernel takes
+CHASE_PLAN_CASES = [
+    ("fam100_largest_level", (39, 2, 209, 210), 128),
+    ("chains_8x2000", (8, 1, 2002, 1982), 128),
+    ("fam500_root_one_pair", (1, 43, 1514, 924), 256),
+    ("one_short_pair", (1, 1, 12, 9), 128),
+    ("most_slots", (1, 64, 300, 280), 256),
+    ("longest_rows", (3, 20, 4096, 4096), 256),
+]
+
+
+def _chase_row_owners(plan, Lm, length):
+    """How many threads of a pair's block store each entry of its packed
+    row, as csrc/chase.cu lays the stores out: the walking warp's entries
+    leave 32 at a time, lane k storing entry base + k of m1 and of m2; the
+    whole block pads from ``length`` on and writes meta and events."""
+    T = plan.threads
+    own = np.zeros(row_width(Lm), np.int64)
+    for base in range(0, length, 32):
+        for lane in range(min(32, length - base)):
+            own[base + lane] += 1
+            own[Lm + base + lane] += 1
+    for tid in range(T):
+        for k in range(length + tid, Lm, T):
+            own[k] += 1
+            own[Lm + k] += 1
+        for k in range(tid, N_META + 1 + 4 * EV_CAP, T):
+            own[2 * Lm + k] += 1
+    return own
+
+
+@pytest.mark.parametrize("win", [8, 32, MAX_WINDOW])
+@pytest.mark.parametrize("name,shape,threads", CHASE_PLAN_CASES,
+                         ids=[c[0] for c in CHASE_PLAN_CASES])
+def test_plan_chase_layout(name, shape, threads, win):
+    B, opmax, n1max, n2max = shape
+    plan = plan_chase(B, opmax, n1max, n2max, win=win)
+    assert plan.blocks == B and plan.win == win
+    assert plan.threads == threads
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 32 * MAX_WARPS
+    # the window, both offset tables and a 64-bit repeat mask per node
+    assert plan.smem_bytes == (4 * (win * win + 2 * MAX_SLOTS)
+                               + 8 * (n1max + n2max))
+    assert plan.smem_bytes <= SMEM_BYTES
+    Lm = n1max + n2max + 8
+    for length in sorted({1, 2, min(33, Lm), n1max + 5, Lm}):
+        assert (_chase_row_owners(plan, Lm, length) == 1).all(), length
+    assert plan_chase(B, opmax, n1max, n2max, threads=64).threads == 64
+
+
+def test_plan_chase_refuses_what_the_kernel_does_not_take():
+    for bad in (dict(opmax=65), dict(win=0), dict(win=7),
+                dict(win=MAX_WINDOW + 2), dict(threads=48),
+                dict(threads=512)):
+        kw = dict(B=1, opmax=4, n1max=100, n2max=90)
+        kw.update(bad)
+        with pytest.raises(ValueError):
+            plan_chase(**kw)
+
+
+def _window_case(kind):
+    """(batch tensors, fill output) on the CPU for one family of pairs."""
+    rng = np.random.RandomState(29)
+    m = checks.model(0.5)
+    opts = checks.OPTS
+    if kind == "merged_large_offsets":
+        pairs = [(checks.heavy(60, [2, 3, 5, 7, 11, 13, 17], 1),
+                  checks.heavy(55, [2, 3, 4, 6, 9], 2), m),
+                 (checks.heavy(48, [2, 3, 5, 8, 13, 21, 34], 3),
+                  checks.heavy(52, [2, 3, 5, 8, 13, 21, 34], 4), m)]
+    elif kind == "boundary_walk":
+        s = checks.random_seq(rng, 90)
+        pairs = [(checks.chain(checks.random_seq(rng, 9)),
+                  checks.merged(s, checks.mutated(rng, s, 8),
+                                checks.model(0.3)), checks.model(0.3)),
+                 (checks.chain(checks.random_seq(rng, 70)),
+                  checks.chain(checks.random_seq(rng, 7)), m)]
+    else:
+        pairs = [checks.repeat_pair(s) for s in range(3)]
+        pairs.append(checks.fixed_repeat_pair())
+        opts = checks.REPEAT_OPTS
+    items, _ = checks.items_and_expected(pairs, opts)
+    bt = gdp.pack_pairs([gdp.prep_pair(k, *it) for k, it in enumerate(items)],
+                        "cpu")
+    Sd = exact_s(bt.g1T, bt.g2T, bt.M, bt.pi, bt.mi, bt.n1, bt.n2)
+    fo = fill_torch(Sd, bt.O1, bt.O2, bt.C1T, bt.C2T, bt.iv, bt.par, bt.Rmax)
+    return bt, fo
+
+
+_window_cases = {}
+
+
+@pytest.mark.parametrize("win,lanes", [(2, 32), (4, 4), (8, 32), (32, 32),
+                                       (MAX_WINDOW, 8)])
+@pytest.mark.parametrize("kind", ["merged_large_offsets", "boundary_walk",
+                                  "repeats", "event_overflow"])
+def test_chase_window_model_walks_the_cells_of_chase_torch(kind, win, lanes):
+    """The kernel's walk reads codes only through a window that ends at the
+    cell it was filled at and restarts where a step leaves it, and repeat
+    flags through one mask of slots per node.  A numpy model of exactly that (a read outside the window fails)
+    gives chase_torch's packed rows, whatever the window and however the
+    argmin replays are split over threads."""
+    base = "repeats" if kind == "event_overflow" else kind
+    if base not in _window_cases:
+        _window_cases[base] = _window_case(base)
+    bt, fo = _window_cases[base]
+    R1T, R2T = bt.R1T, bt.R2T
+    if kind == "event_overflow":      # every step is a repeat step
+        R1T, R2T = torch.ones_like(R1T), torch.ones_like(R2T)
+    args = (bt.O1, bt.O2, bt.C1T, bt.C2T, R1T, R2T, bt.iv, bt.par, bt.Lm)
+    want = chase_torch(fo, *args).numpy()
+    got, stats = checks.chase_window_model(fo, *args, win=win, lanes=lanes)
+    assert np.array_equal(got, want)
+    meta = want[:, 2 * bt.Lm:2 * bt.Lm + N_META]
+    assert not meta[:, META_FAIL_CHASE].any()
+    assert stats.shape == (want.shape[0], N_STATS)
+    if kind == "event_overflow":
+        assert meta[:, META_FAIL_REP].all()
+        return
+    assert not meta[:, META_FAIL_REP].any()
+    steps, fills, replays = stats[:, 0], stats[:, 1], stats[:, 2]
+    assert (steps >= meta[:, META_LEN] - 2).all()
+    # a window of win cells a side holds at most 2 * win - 1 steps
+    assert (fills >= -(-steps // (2 * win - 1))).all()
+    if win == MAX_WINDOW and kind == "repeats":
+        assert (fills == 1).all()          # these pairs fit one window
+    if win <= 8 and kind == "merged_large_offsets":
+        # some step jumps further than the window is wide (a miss by more
+        # than one window) and the walk restarts there
+        assert int(bt.O1.max()) > win and (fills > 2).all()
+    if kind == "boundary_walk":
+        assert (replays > 0).all()
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions():
     if not torch.cuda.is_available():
@@ -388,5 +555,16 @@ def test_cuda_kernels_match_plain_versions():
     for a, b in zip(fo, fp):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
     ca = (bt.O1, bt.O2, bt.C1T, bt.C2T, bt.R1T, bt.R2T, bt.iv, bt.par, bt.Lm)
-    assert torch.equal(chase(fo, *ca), chase_torch(fo, *ca))
+    want = chase_torch(fo, *ca)
+    assert torch.equal(chase(fo, *ca), want)
+    B, _, n1max = bt.g1T.shape
+    for win, threads in ((2, 32), (8, 64), (32, 256), (MAX_WINDOW, 128)):
+        plan = plan_chase(B, bt.O1.shape[1], n1max, bt.g2T.shape[2], win=win,
+                          threads=threads)
+        stats = torch.zeros((B, N_STATS), dtype=torch.int32, device="cuda")
+        assert torch.equal(chase(fo, *ca, plan=plan, stats=stats), want)
+        model = checks.chase_window_model(
+            type(fo)(*(t.cpu() for t in fo)), *(t.cpu() for t in ca[:-1]),
+            bt.Lm, win=win)[1]
+        assert np.array_equal(stats.cpu().numpy(), model)
     _assert_batch(pairs, device="cuda")

@@ -25,8 +25,10 @@ from prographmsa_tpu.models.factory import CustomModelFactory, EcmModelFactory
 
 from prographmsa_tpu_torch import _build, checks
 from prographmsa_tpu_torch.align import graph_dp_cuda as gdp
-from prographmsa_tpu_torch.align.scores_cuda import (exact_s, exact_s_torch,
-                                                     unshear)
+from prographmsa_tpu_torch.align.fill_cuda import SMS
+from prographmsa_tpu_torch.align.scores_cuda import (
+    DGROUPS, FILL_THREADS, MAX_DIM, XVECS, exact_s, exact_s_torch,
+    plan_s_prep, s_prep, s_prep_torch, unshear)
 from prographmsa_tpu_torch.device import on_cuda, resolve_device
 
 FIX = os.path.join(os.path.dirname(__file__), "..", "fixtures")
@@ -142,6 +144,91 @@ def test_cuda_requested_without_cuda_raises():
         resolve_device("cuda")
 
 
+# (pairs, states, largest n2) of the timed shapes (fam100's largest level,
+# 8 x 2000 x 1980 chains, fam500's root pair) and the edges of what K1
+# takes -> (outputs d per thread, nodes x per thread)
+S_PREP_PLAN_CASES = [
+    ("fam100_largest_level", (39, 20, 210), (8, 1)),
+    ("chains_8x2000", (8, 20, 1982), (8, 1)),
+    ("chains_n2max_multiple_of_4", (8, 20, 1980), (4, 4)),
+    ("fam500_root_one_pair", (1, 20, 924), (1, 1)),
+    ("fam500_level0", (186, 20, 320), (8, 4)),
+    ("one_short_dna_pair", (1, 4, 203), (1, 1)),
+    ("dna_level", (60, 4, 1200), (4, 4)),
+    ("codon_level", (12, 61, 301), (8, 1)),
+    ("widest_states", (1, MAX_DIM, 2001), (4, 1)),
+]
+
+
+def _s_prep_owners(plan, dim, n2max):
+    """How many threads of K1's grid own each output t2[d, x] and v2[x] of
+    one pair, as csrc/scores.cu indexes them."""
+    t2 = np.zeros((dim, n2max), np.int64)
+    v2 = np.zeros(n2max, np.int64)
+    for bx in range(plan.grid[0]):
+        for t in range(plan.threads):
+            x0 = (bx * plan.threads + t) * plan.xvec
+            if x0 >= n2max:
+                continue
+            xs = slice(x0, x0 + plan.xvec)
+            for by in range(plan.grid[1]):
+                d0 = by * plan.dgroup
+                t2[d0:min(d0 + plan.dgroup, dim), xs] += 1
+                if by == 0:
+                    v2[xs] += 1
+            assert x0 + plan.xvec <= n2max     # no store past the row
+    return t2, v2
+
+
+@pytest.mark.parametrize("name,shape,layout", S_PREP_PLAN_CASES,
+                         ids=[c[0] for c in S_PREP_PLAN_CASES])
+def test_plan_s_prep_layout(name, shape, layout):
+    B, dim, n2max = shape
+    plan = plan_s_prep(B, dim, n2max)
+    assert (plan.dgroup, plan.xvec) == layout
+    assert plan.dgroup in DGROUPS and plan.xvec in XVECS
+    assert plan.xvec == 1 or n2max % 4 == 0
+    assert plan.threads in (32, 64, 128)
+    assert plan.grid[2] == B and max(plan.grid[1:]) <= 65535
+    # shared memory: the group's columns of M and pi
+    assert 4 * (MAX_DIM * plan.dgroup + MAX_DIM) <= 48 * 1024
+    # a launch that can fill the card does, with the longest chains that
+    # still do
+    threads = B * plan.grid[1] * -(-n2max // plan.xvec)
+    if B * dim * n2max >= SMS * FILL_THREADS:
+        assert threads >= SMS * FILL_THREADS
+    else:
+        assert (plan.dgroup, plan.xvec) == (1, 1)
+    t2, v2 = _s_prep_owners(plan, dim, n2max)
+    assert (t2 == 1).all() and (v2 == 1).all()
+
+
+@pytest.mark.parametrize("dgroup", DGROUPS)
+@pytest.mark.parametrize("xvec,n2max", [(1, 203), (4, 204)])
+def test_plan_s_prep_every_layout_owns_each_output_once(dgroup, xvec, n2max):
+    for dim in (4, 20, 61, MAX_DIM):
+        plan = plan_s_prep(3, dim, n2max, dgroup=dgroup, xvec=xvec)
+        assert (plan.dgroup, plan.xvec) == (dgroup, xvec)
+        t2, v2 = _s_prep_owners(plan, dim, n2max)
+        assert (t2 == 1).all() and (v2 == 1).all()
+
+
+def test_plan_s_prep_refuses_what_the_kernel_does_not_take():
+    for bad in (dict(dim=0), dict(dim=MAX_DIM + 1), dict(dgroup=3),
+                dict(n2max=203, xvec=4), dict(xvec=2)):
+        kw = dict(B=2, dim=20, n2max=204)
+        kw.update(bad)
+        with pytest.raises(ValueError):
+            plan_s_prep(**kw)
+
+
+def _random_s_prep_inputs(B, dim, n2max, device="cpu"):
+    rng = np.random.RandomState(B * 1000 + dim * 10 + n2max)
+    t = lambda *shape: torch.from_numpy(
+        rng.rand(*shape).astype(np.float32)).to(device)
+    return t(B, dim, n2max), t(B, dim, dim), t(B, dim)
+
+
 @pytest.mark.cuda
 def test_cuda_s_kernels_match_plain_and_host():
     if not torch.cuda.is_available():
@@ -153,3 +240,17 @@ def test_cuda_s_kernels_match_plain_and_host():
         assert torch.equal(Sk.view(torch.int32),
                            exact_s_torch(*args).view(torch.int32))
         _assert_planes(items, Sk)
+    # K1 under every layout the planner can choose, at dim 4, 20, 61 and 64
+    for dim in (4, 20, 61, MAX_DIM):
+        for n2max in (203, 204):
+            g2T, M, pi = _random_s_prep_inputs(3, dim, n2max, "cuda")
+            want = s_prep_torch(g2T, M, pi)
+            for dgroup in DGROUPS:
+                for xvec in XVECS:
+                    if xvec == 4 and n2max % 4:
+                        continue
+                    got = s_prep(g2T, M, pi, plan_s_prep(
+                        3, dim, n2max, dgroup=dgroup, xvec=xvec))
+                    for a, b in zip(got, want):
+                        assert torch.equal(a.view(torch.int32),
+                                           b.view(torch.int32))

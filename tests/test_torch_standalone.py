@@ -1,6 +1,6 @@
 """The PyTorch/CUDA port stands alone: no module of prographmsa_tpu_torch/
-and neither chip_smoke.py nor k3_sweep.py imports ``jax`` or anything of the JAX package
-``prographmsa_tpu``, and with both names refused by the import system the
+and none of chip_smoke.py, k3_sweep.py and k1_x1_probe.py imports ``jax`` or
+anything of the JAX package ``prographmsa_tpu``, and with both names refused by the import system the
 port's CLI still reproduces the fam20 goldens byte for byte (stdout and
 stderr) on ``--device cpu`` and with its own ``--engine native``.
 """
@@ -18,8 +18,8 @@ from test_e2e_differential import FIX, G, REPO, _strip_header
 REPO = os.path.abspath(REPO)
 PORT = os.path.join(REPO, "prographmsa_tpu_torch")
 SOURCES = sorted(glob.glob(os.path.join(PORT, "**", "*.py"), recursive=True))
-SOURCES += [os.path.join(REPO, "chip_smoke.py"),
-            os.path.join(REPO, "k3_sweep.py")]
+SOURCES += [os.path.join(REPO, name) for name in
+            ("chip_smoke.py", "k3_sweep.py", "k1_x1_probe.py")]
 
 FAM20 = [
     ("t_fam20.fasta", ["--fasta", "-t", G + "/tree0_fam20.nwk",
