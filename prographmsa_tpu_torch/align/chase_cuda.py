@@ -71,9 +71,10 @@ def plan_chase(B: int, opmax: int, n1max: int, n2max: int,
         threads = 32 * min(MAX_WARPS, 1 << (want - 1).bit_length())
     if threads % 32 or not 32 <= threads <= 32 * MAX_WARPS:
         raise ValueError("threads %d" % threads)
-    # int wcode[win * win], o1s[MAX_SLOTS], o2s[MAX_SLOTS]; one uint64 mask
-    # of repeat slots per row and per column
-    smem = 4 * (win * win + 2 * MAX_SLOTS) + 8 * (n1max + n2max)
+    # int wcode[win * win], o1s[MAX_SLOTS], o2s[MAX_SLOTS], two buffers of
+    # 2 * win mapping entries; one uint64 mask of repeat slots per row and
+    # per column
+    smem = 4 * (win * win + 2 * MAX_SLOTS + 4 * win) + 8 * (n1max + n2max)
     return ChasePlan(B, threads, win, smem)
 
 

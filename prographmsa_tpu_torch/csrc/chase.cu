@@ -41,15 +41,17 @@
 //     the cell alone, not on the decoded slot) leave the chain;
 //   * with memory out of the way a step is bound by its own chain of
 //     dependent instructions, so the decode is written without branches
-//     (the three states' fields are selected, not branched to) and the two
-//     rare cases, a boundary replay and a repeat step, are one test each;
+//     (the three states' fields are selected, not branched to), a step
+//     stores its mapping entry without a test, and everything rare (a
+//     boundary replay, a repeat step, a slot the pair does not have, a step
+//     out of the window, a full row) hides behind one test;
 //   * all 32 lanes of the walking warp run the walk in lockstep on the same
 //     state, so the parts that split over lanes need no hand-over: window
 //     fills, the boundary replays (each lane scans a strided subset of the
 //     slots in index order, a shuffle butterfly keeps the smaller
 //     difference and then the smaller index, which is the sequential
-//     "first index at the minimum"), and the mapping stores, which are
-//     kept one entry per lane and leave 32 at a time as one coalesced store;
+//     "first index at the minimum"), and the mapping stores, which wait in
+//     shared memory and leave at each window fill as coalesced stores;
 //   * the end transition splits its nl1 x nl2 slot pairs over the whole
 //     block the same way (a plain max first, then first index at minimal
 //     |Wend - c|), and the whole block writes the -2 padding, meta and
@@ -156,7 +158,8 @@ __device__ __forceinline__ EndCand end_cands(
 }
 
 // One block per pair.  Dynamic shared memory, for a window of `win` cells a
-// side: int wcode[win * win], o1s[64], o2s[64]; uint64 rm1[n1max],
+// side: int wcode[win * win], o1s[64], o2s[64], mb1[2 * win], mb2[2 * win];
+// uint64 rm1[n1max],
 // rm2[n2max] (bit i: slot i's edge into the node is a repeat edge).
 // `stats`, if not null, receives per pair (steps, window fills, boundary
 // replays).
@@ -179,8 +182,10 @@ __global__ void __launch_bounds__(32 * kMaxWarps) chase_kernel(
   int* wcode = dyn;
   int* o1s = wcode + win * win;
   int* o2s = o1s + kMaxSlots;
+  int* mb1 = o2s + kMaxSlots;  // mapping entries since the last flush
+  int* mb2 = mb1 + 2 * win;
   unsigned long long* rm1 =
-      reinterpret_cast<unsigned long long*>(o2s + kMaxSlots);
+      reinterpret_cast<unsigned long long*>(mb2 + 2 * win);
   unsigned long long* rm2 = rm1 + n1max;
 
   const int b = blockIdx.x;
@@ -287,23 +292,28 @@ __global__ void __launch_bounds__(32 * kMaxWarps) chase_kernel(
     if (t0 == 3) y = x = 0;
 
     int pos = 0, evn = 0, fail_rep = 0, fail_chase = 0;
-    int nbuf = 0, bm1 = 0, bm2 = 0;  // lane k holds entry pos - nbuf + k
+    int nbuf = 0;  // entries pos - nbuf .. pos - 1 wait in mb1 / mb2
     int yb = 0, xb = 0;              // the window's first row and column
     int wofs = 0;                    // cell (y, x) is wcode[wofs + y * win + x]
     int n_fill = 0, n_replay = 0, it = 0;
 
+    // A step stores its entry to shared memory (every lane the same word)
+    // and tests nothing: the buffer is flushed where the window is filled,
+    // and a window of win cells a side holds fewer than 2 * win steps.
     auto push = [&](int v1, int v2) {
-      if (lane == nbuf) {
-        bm1 = v1;
-        bm2 = v2;
-      }
+      mb1[nbuf] = v1;
+      mb2[nbuf] = v2;
       ++nbuf;
       ++pos;
-      if (nbuf == 32) {
-        m1[pos - 32 + lane] = bm1;
-        m2[pos - 32 + lane] = bm2;
-        nbuf = 0;
+    };
+    auto flush = [&]() {
+      __syncwarp();
+      for (int k = lane; k < nbuf; k += 32) {
+        m1[pos - nbuf + k] = mb1[k];
+        m2[pos - nbuf + k] = mb2[k];
       }
+      __syncwarp();
+      nbuf = 0;
     };
     auto event = [&](int side, int nxt, int cur) {
       if (evn >= PGM_EV_CAP) {
@@ -321,7 +331,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) chase_kernel(
     // The window ending at cell (yc, xc): rows yc - win + 1 .. yc, columns
     // xc - win + 1 .. xc, as far as they exist.
     auto fill_window = [&](int yc, int xc) {
-      __syncwarp();
+      flush();
       yb = yc - win + 1;
       xb = xc - win + 1;
       wofs = -(yb * win + xb);
@@ -357,7 +367,9 @@ __global__ void __launch_bounds__(32 * kMaxWarps) chase_kernel(
     const int shXrw = 3 * shb + 1, shXj = 3 * shb + 2, shW = 4 * shb + 2;
     int last = Lm - 1;  // in a register, not re-read from the parameters
     asm volatile("" : "+r"(last));
-    for (; (y != 0 || x != 0) && !fail_rep && it < Lm; ++it) {
+    // Every turn stores an entry or ends the walk, and the length test caps
+    // the entries at Lm - 1, so the loop ends without a count of its own.
+    while ((y != 0 || x != 0) && !fail_rep) {
       const bool isY = st == PGM_ST_Y, isX = st == PGM_ST_X;
       const unsigned long long f1 = rm1[y], f2 = rm2[x];
       int i_sel = (code >> (isY ? shYi : shb)) & smask;
@@ -369,7 +381,8 @@ __global__ void __launch_bounds__(32 * kMaxWarps) chase_kernel(
       const bool boundary = isY ? x == 0 : (isX && y == 0);
       const bool bad = (!isX & (i_sel >= p.nl1)) | (!isY & (j_sel >= p.nl2));
       // one test for everything rare; the cases then go in the host's order
-      if (boundary | bad | ((f1 | f2) != 0) | (ny < yb) | (nx < xb)) {
+      if (boundary | bad | ((f1 | f2) != 0) | (ny < yb) | (nx < xb) |
+          (pos >= last)) {
         if (boundary) {
           // boundary replay along g1 (state Y) or g2 (state X): the slots
           // split over the lanes
@@ -410,17 +423,17 @@ __global__ void __launch_bounds__(32 * kMaxWarps) chase_kernel(
         if (!isY && ((f2 >> j_sel) & 1)) event(2, nx, x);
         if (fail_rep) break;
         if (ny < yb || nx < xb) fill_window(ny, nx);
+        if ((ny != 0 || nx != 0) && pos >= last) {
+          fail_chase = 1;
+          break;
+        }
       }
       const int code2 = wcode[wofs + ny * win + nx];
       const int nst =
           (rw == 1) ? ((code2 >> shW) & 3) : (isY ? PGM_ST_Y : PGM_ST_X);
-      if (ny != 0 || nx != 0) {
-        if (pos >= last) {
-          fail_chase = 1;
-          break;
-        }
+      if (ny != 0 || nx != 0)
         push((nst == PGM_ST_X) ? -1 : ny, (nst == PGM_ST_Y) ? -1 : nx);
-      }
+      ++it;
       y = ny;
       x = nx;
       st = nst;
@@ -428,10 +441,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) chase_kernel(
     }
     if (!fail_rep && (y != 0 || x != 0)) fail_chase = 1;
     if (!fail_rep && !fail_chase) push(0, 0);
-    if (lane < nbuf) {
-      m1[pos - nbuf + lane] = bm1;
-      m2[pos - nbuf + lane] = bm2;
-    }
+    flush();
     if (lane == 0) {
       fin[0] = __float_as_int(Wend);
       fin[1] = pos;
@@ -481,7 +491,8 @@ extern "C" int pgm_chase(const int* codes, const float* ringM,
                          int B, int D, int n1max, int n2max, int opmax,
                          int Rmax, int Lm, int threads, int win,
                          int smem_bytes, int* out, int* stats, void* stream) {
-  const int need = 4 * (win * win + 2 * kMaxSlots) + 8 * (n1max + n2max);
+  const int need =
+      4 * (win * win + 2 * kMaxSlots + 4 * win) + 8 * (n1max + n2max);
   if (opmax > kMaxSlots || threads < 32 || threads > 32 * kMaxWarps ||
       threads % 32 != 0 || win < 2 || win % 2 != 0 || smem_bytes < need)
     return (int)cudaErrorInvalidValue;

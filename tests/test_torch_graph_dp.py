@@ -446,8 +446,9 @@ def test_plan_chase_layout(name, shape, threads, win):
     assert plan.blocks == B and plan.win == win
     assert plan.threads == threads
     assert plan.threads % 32 == 0 and 32 <= plan.threads <= 32 * MAX_WARPS
-    # the window, both offset tables and a 64-bit repeat mask per node
-    assert plan.smem_bytes == (4 * (win * win + 2 * MAX_SLOTS)
+    # the window, both offset tables, the mapping entries of one window's
+    # steps and a 64-bit repeat mask per node
+    assert plan.smem_bytes == (4 * (win * win + 2 * MAX_SLOTS + 4 * win)
                                + 8 * (n1max + n2max))
     assert plan.smem_bytes <= SMEM_BYTES
     Lm = n1max + n2max + 8
