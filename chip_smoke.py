@@ -20,8 +20,14 @@ events, free of Python.  ``launch_floor_ms`` is an empty grid timed the
 same way, what any launch costs there.
 
 The bound of a kernel is the larger of its bytes (each input read once,
-each output written once, the pairs' own cells only) over HBM_BYTES_S and
-its float32 operations over F32_FLOPS, the H100 SXM's published peaks.  The
+each output written once, the pairs' own cells only, but of K2 the whole
+padded array it writes, NEG included) over HBM_BYTES_S and
+its operations over F32_INSTR_S: the H100 SXM's published peaks, the float32
+one halved because it counts a fused multiply-add as two and the kernels'
+products and sums are separate roundings, one instruction each (K2's count
+per cell is S_CELL_OPS, term by term).  ``bound_old_ms`` is the bound as it
+was reckoned before (F32_FLOPS, 12 operations per cell of K2, the pairs'
+cells only as K2's output).  The
 chase is a chain of dependent reads that no roofline shows, so it has a
 second bound, ``chain_ms``: the longest walk's steps times one dependent
 read from shared memory (``chain_l2_ms``: from L2), both latencies measured
@@ -34,6 +40,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -53,8 +60,9 @@ from prographmsa_tpu_torch.align.fill_cuda import (card_limits, fill,
                                                    fill_torch, plan_fill)
 from prographmsa_tpu_torch.align.slots import COST_INF
 from prographmsa_tpu_torch.align.scores_cuda import (
-    DGROUPS, XVECS, exact_s, plan_s_prep, s_plane, s_plane_torch, s_prep,
-    s_prep_torch, unshear)
+    DGROUPS, S_CHAINS, S_SMEM_MAX, S_THREADS, XVECS, exact_s, plan_s,
+    plan_s_prep, s_plane, s_plane_torch, s_prep, s_prep_torch, s_smem_bytes,
+    unshear)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIX = os.path.join(REPO, "fixtures")
@@ -75,7 +83,22 @@ max_err = {k: 0.0 for k in KERNELS}
 detail = []
 CALL_REPS = 200               # calls per call-time reading of K1
 HBM_BYTES_S = 3.35e12          # H100 SXM device memory rate
-F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
+F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores,
+                               # a fused multiply-add counted as two
+F32_INSTR_S = F32_FLOPS / 2    # the same lanes issuing one operation each:
+                               # the kernels' products and sums are separate
+                               # roundings, none is fused
+# A correctly rounded float32 division: the reciprocal, a Newton step on it
+# (2), the quotient, two residual corrections (2 each).
+DIV_OPS = 8
+# K2's operations per cell beyond the 2 * dim of num, term by term.
+S_CELL_OPS = {"den = v1 * v2": 1, "num / den": DIV_OPS,
+              "NaN to the x86 NaN: compare, select": 2,
+              "ef: shift, subtract, convert": 3, "dm: and, xor": 2,
+              "dm - lsC": 1, "lsB / (dm - lsC)": DIV_OPS,
+              "body: three sums": 3, "tail: three sums": 3,
+              "body or tail: position, compare, select": 3,
+              "NaN or < NEG to NEG: two compares, select": 3}
 
 
 def say(phase, t0, **kv):
@@ -132,17 +155,64 @@ def s_prep_check(g2T, M, pi):
     return t2, v2, len(layouts)
 
 
+def s_layouts(B, dim, n1max, n2max):
+    """The launch's own plan of K2 (None) and every layout it is compiled
+    for that these sizes allow: each number of chains with each block size,
+    under tiles of one diagonal, of 7 (no group of chains divides it), of 32
+    and of more diagonals than the plane has."""
+    D = n1max + n2max - 1
+    return [None] + [plan_s(B, dim, n1max, n2max, threads=t, dtile=d,
+                            chains=c)
+                     for c in S_CHAINS for t in S_THREADS
+                     for d in (1, 7, 32, D + 5)
+                     if s_smem_bytes(dim, t, d, c) <= S_SMEM_MAX]
+
+
+def s_plane_check(g1T, t2, v2, pi, mi, n1, n2):
+    """K2 under each layout against s_plane_torch on the whole array, bit
+    for bit; returns the output under the launch's own plan and the layouts
+    checked."""
+    args = (g1T, t2, v2, pi, mi, n1, n2)
+    want = s_plane_torch(*args)
+    layouts = s_layouts(g1T.shape[0], g1T.shape[1], g1T.shape[2],
+                        t2.shape[2])
+    for plan in reversed(layouts):
+        Sd = s_plane(*args, plan=plan)
+        diff("s", Sd, want, "Sdiag under %s" % (plan,))
+    return Sd, len(layouts)
+
+
 def s_check(bt):
-    """K1 (every layout) and K2 against their plain versions, and the two
-    launched from one call, with and without programmatic dependent launch,
-    against K2 alone."""
+    """K1 and K2 (every layout of each) against their plain versions, and
+    the two launched from one call, with and without programmatic dependent
+    launch, against K2 alone."""
     t2, v2, _ = s_prep_check(bt.g2T, bt.M, bt.pi)
-    Sd = s_plane(bt.g1T, t2, v2, bt.pi, bt.mi, bt.n1, bt.n2)
-    diff("s", Sd, s_plane_torch(bt.g1T, t2, v2, bt.pi, bt.mi, bt.n1, bt.n2),
-         "Sdiag")
+    Sd, _ = s_plane_check(bt.g1T, t2, v2, bt.pi, bt.mi, bt.n1, bt.n2)
     for pdl in (False, True):
         diff("s", exact_s_with(pdl, bt), Sd, "Sdiag of exact_s, pdl=%s" % pdl)
     return Sd
+
+
+# (n1max, n2max, n1 per pair, n2 per pair) K2 is held against its plain
+# version on at every width: a 3 x 2 pair beside long ones with sides that
+# are no multiples of 4; n1 << n2 and n1 >> n2 with sides that are (tiles
+# wholly below, above and across the band); a plane smaller than one tile.
+S_SHAPES = ((203, 317, (203, 3, 150), (317, 2, 20)),
+            (64, 520, (64, 10), (520, 519)),
+            (520, 36, (520, 300), (36, 5)),
+            (37, 50, (37, 21), (50, 50)))
+
+
+def s_inputs(rng, dim, n1max, n2max, n1, n2, dev):
+    """Random inputs of K2 with all-zero first rows of g1 and t2 (0/0, the
+    NaN quotient of the sentinel nodes)."""
+    B = len(n1)
+    t = lambda *shape: rng.rand(*shape).astype(np.float32)
+    g1T, t2, v2 = t(B, dim, n1max), t(B, dim, n2max), t(B, n2max) + 0.1
+    g1T[:, :, 0] = t2[:, :, 0] = v2[:, 0] = 0.0
+    arrs = (g1T, t2, v2, t(B, dim), t(B), np.array(n1, np.int32),
+            np.array(n2, np.int32))
+    return tuple(torch.from_numpy(a).to(dev) for a in arrs)
 
 
 def exact_s_with(pdl, bt):
@@ -263,6 +333,21 @@ def phase_build():
         native_lib=os.path.basename(native._SO))
 
 
+def kernel_sass(pattern, out_name):
+    """The SASS of the kernel whose mangled name matches ``pattern``, from
+    the built library, also written to chiprun_out/<out_name>."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", _build.so_path()],
+                          capture_output=True, text=True, timeout=300).stdout
+    os.makedirs(OUT, exist_ok=True)
+    for block in sass.split("Function : "):
+        if re.search(pattern, block.split("\n")[0]):
+            with open(os.path.join(OUT, out_name), "w") as f:
+                f.write(block)
+            return block
+    raise AssertionError("no kernel %s in %s" % (pattern, _build.so_path()))
+
+
 def phase_s(dev):
     t0 = time.perf_counter()
     rng = np.random.RandomState(11)
@@ -296,9 +381,24 @@ def phase_s(dev):
                 np.float32)).to(dev) for shape in (
                     (B, dim, n2max), (B, dim, dim), (B, dim)))
             n_layouts += s_prep_check(g2T, M, pi)[2]
+    # K2 alone at those widths and at one that is not compiled in, every
+    # layout, on the shapes of S_SHAPES
+    n_s_layouts = 0
+    for dim in (4, 20, 23, 61, scores_cuda.MAX_DIM):
+        for shape in S_SHAPES:
+            n_s_layouts += s_plane_check(*s_inputs(rng, dim, *shape, dev))[1]
+    # the second division of K2 without the range test, on every mantissa
+    bad = torch.zeros(1, dtype=torch.int32, device=dev)
+    _build.launch((), _build.lib().pgm_q_check, *scores_cuda._LS[1:],
+                  _build.ptr(bad))
+    if int(bad) != 0:
+        raise AssertionError("div_normal differs from __fdiv_rn on %d of "
+                             "2^23 mantissas" % int(bad))
     say("s_kernel", t0, pairs=len(pairs) + 1, cells=n_cells,
         vs_host="bit-identical", vs_plain="bit-identical",
-        s_prep_layouts_checked_dim_4_20_61_64=n_layouts)
+        s_prep_layouts_checked_dim_4_20_61_64=n_layouts,
+        s_layouts_checked_dim_4_20_23_61_64=n_s_layouts,
+        div_normal_vs_fdiv_rn_2p23_mantissas="bit-identical")
 
 
 def fill_pairs():
@@ -655,12 +755,20 @@ def card_floors(dev):
             "l2_read_ms": read["l2"]}
 
 
-def bounds(preps, steps, Lm):
-    """Per kernel (bound_ms, bound_by) on these pairs: the larger of bytes
-    over the memory rate and float32 operations over the peak rate, from
-    the pairs' own sizes; the chase counts the steps its walks took."""
+def bounds(preps, steps, Lm, n1max, n2max):
+    """Per kernel (bound_ms, bound_by, old bound_ms) on these pairs: the
+    larger of bytes over the memory rate and operations over the rate the
+    card issues them at, from the pairs' own sizes; the chase counts the
+    steps its walks took.  No counted operation is a fused multiply-add, so
+    the rate is F32_INSTR_S; K2's output is the whole padded array
+    [D, n1max] of each pair, NEG outside its cells included.  The old bound
+    took F32_FLOPS, 12 operations for a cell of K2 beyond num, and of K2's
+    output the pairs' cells only."""
     by = {k: 0.0 for k in KERNELS}
     op = {k: 0.0 for k in KERNELS}
+    op_s_old = by_s_old = 0.0
+    s_cell = sum(S_CELL_OPS.values())
+    s_plane_bytes = 4 * (n1max + n2max - 1) * n1max
     for k, p in enumerate(preps):
         n1, n2, dim = p.g1.size, p.g2.size, p.g1.dim
         e1 = int(np.count_nonzero(p.C1 < COST_INF))
@@ -668,8 +776,12 @@ def bounds(preps, steps, Lm):
         nl1, nl2 = len(p.o1), len(p.o2)
         by["s_prep"] += 4 * (dim * n2 + dim * dim + dim + dim * n2 + n2)
         op["s_prep"] += 2 * n2 * dim * dim + 2 * n2 * dim
-        by["s"] += 4 * (dim * n1 + dim * n2 + n2 + dim + 1 + n1 * n2)
-        op["s"] += 2 * dim * n1 * n2 + 2 * dim * n1 + 12 * n1 * n2
+        s_in = 4 * (dim * n1 + dim * n2 + n2 + dim + 1)
+        by["s"] += s_in + s_plane_bytes
+        by_s_old += s_in + 4 * n1 * n2
+        # num per cell, the packet dot v1 per row, the rest per cell
+        op["s"] += 2 * dim * n1 * n2 + (2 * dim + 3) * n1 + s_cell * n1 * n2
+        op_s_old += 2 * dim * n1 * n2 + 2 * dim * n1 + 12 * n1 * n2
         # S in, codes out, slot tables in, four rings and two stripes out
         by["fill"] += 4 * (2 * n1 * n2 + nl1 * n1 + nl2 * n2 + nl1 + nl2
                            + 4 * p.R * n1 + n1 + n2)
@@ -680,8 +792,10 @@ def bounds(preps, steps, Lm):
         op["chase"] += 12 * nl1 * nl2 + 10 * int(steps[k])
     out = {}
     for k in KERNELS:
-        tb, to = by[k] / HBM_BYTES_S * 1e3, op[k] / F32_FLOPS * 1e3
-        out[k] = (max(tb, to), "bytes" if tb >= to else "operations")
+        tb, to = by[k] / HBM_BYTES_S * 1e3, op[k] / F32_INSTR_S * 1e3
+        old = max((by_s_old if k == "s" else by[k]) / HBM_BYTES_S * 1e3,
+                  (op_s_old if k == "s" else op[k]) / F32_FLOPS * 1e3)
+        out[k] = (max(tb, to), "bytes" if tb >= to else "operations", old)
     return out
 
 
@@ -778,10 +892,13 @@ def kernel_times(items, dev, reps_kernel, reps_plain, floors):
     gdp.align_pairs_device(items, dev)
     batch_ms = (time.perf_counter() - t0) * 1e3
     return {"times": out, "device": dev_ms,
-            "bounds": bounds(preps, stats[:, 0], bt.Lm), "chain": chain,
+            "bounds": bounds(preps, stats[:, 0], bt.Lm, n1max, n2max),
+            "chain": chain,
             "library": library, "library_device": library_dev,
             "library_max_abs_diff": lib_err, "exact_s": exact,
-            "s_prep_plan": plan_s_prep(*bt.g2T.shape), "walks": walks,
+            "s_prep_plan": plan_s_prep(*bt.g2T.shape),
+            "s_plan": plan_s(B, bt.g1T.shape[1], n1max, n2max),
+            "walks": walks,
             "chase_sweep": chase_sweep, "plan": bt.plan, "sweep": sweep,
             "native_ms": native_ms, "batch_ms": batch_ms}
 
@@ -813,11 +930,13 @@ def phase_times(dev, largest, root):
             device_batch_wall_ms="%.3f" % r["batch_ms"],
             fill_plan=cj(r["plan"]._asdict()),
             fill_sweep_ms=cj(r4(r["sweep"])),
-            bound_ms=cj({k: "%.5f/%s" % v for k, v in r["bounds"].items()}),
+            bound_ms_by_old=cj({k: "%.5f/%s/%.5f" % v
+                                for k, v in r["bounds"].items()}),
             chase_chain_bound_ms=cj(r4(r["chain"])),
             chase_walks=cj(r["walks"]),
             chase_sweep_device_ms=cj(r4(r["chase_sweep"])),
             s_prep_plan=cj(r["s_prep_plan"]._asdict()),
+            s_plan=cj(r["s_plan"]._asdict()),
             s_prep_library_ms="%.4f" % r["library"]["s_prep"],
             s_prep_library_device_ms="%.4f" % r["library_device"]["s_prep"],
             s_prep_library_max_abs_diff="%.3g" % r["library_max_abs_diff"],
@@ -863,7 +982,8 @@ def main():
             row["ms" + sfx] = min(k0, k1)
             row["device_ms" + sfx] = r["device"][k]
             row["plain_ms" + sfx] = min(p0, p1)
-            row["bound_ms" + sfx], row["bound_by" + sfx] = r["bounds"][k]
+            (row["bound_ms" + sfx], row["bound_by" + sfx],
+             row["bound_old_ms" + sfx]) = r["bounds"][k]
             row["library_ms" + sfx] = r["library"].get(k)
             row["library_device_ms" + sfx] = r["library_device"].get(k)
             if k == "fill":

@@ -18,8 +18,6 @@ limit and PROBE OK.
 
 from __future__ import annotations
 
-import os
-import subprocess
 import time
 
 import numpy as np
@@ -48,15 +46,8 @@ def host_us(fn, n=3000):
 
 
 def dump_sass():
-    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", _build.so_path()],
-                          capture_output=True, text=True, timeout=300).stdout
-    os.makedirs(cs.OUT, exist_ok=True)
-    for block in sass.split("Function : "):
-        if "chase_kernel" in block.split("\n")[0]:
-            with open(os.path.join(cs.OUT, "chase_sass.txt"), "w") as f:
-                f.write(block)
-            print("chase_kernel SASS lines", block.count("\n"))
+    block = cs.kernel_sass("chase_kernel", "chase_sass.txt")
+    print("chase_kernel SASS lines", block.count("\n"))
 
 
 def probe_k1(bt, dev):

@@ -113,17 +113,19 @@ def lib() -> ctypes.CDLL:
         L = ctypes.CDLL(build())
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         L.pgm_s_prep.argtypes = [p, p, p] + [i] * 6 + [p, p, p]
-        L.pgm_s.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, f, f, p, p]
-        L.pgm_exact_s.argtypes = ([p] * 7 + [i] * 5 + [f] * 3 + [i] * 4
+        L.pgm_s.argtypes = [p] * 7 + [i] * 5 + [f] * 3 + [i] * 3 + [p, p]
+        L.pgm_exact_s.argtypes = ([p] * 7 + [i] * 5 + [f] * 3 + [i] * 7
                                   + [p, p, p])
+        L.pgm_q_check.argtypes = [f, f, p, p]
         L.pgm_empty.argtypes = [p]
         L.pgm_fill.argtypes = [p] * 7 + [i] * 11 + [p] * 12
         L.pgm_fill_max_clusters.argtypes = [i, i, i, ctypes.POINTER(i)]
         L.pgm_fill_max_clusters.restype = i
         L.pgm_chase.argtypes = [p] * 14 + [i] * 10 + [p, p, p]
         L.pgm_chase_latency.argtypes = [p, i, i, i, p, p]
-        for fn in (L.pgm_s_prep, L.pgm_s, L.pgm_exact_s, L.pgm_empty,
-                   L.pgm_fill, L.pgm_chase, L.pgm_chase_latency):
+        for fn in (L.pgm_s_prep, L.pgm_s, L.pgm_exact_s, L.pgm_q_check,
+                   L.pgm_empty, L.pgm_fill, L.pgm_chase,
+                   L.pgm_chase_latency):
             fn.restype = ctypes.c_int
         L.pgm_error_string.argtypes = [i]
         L.pgm_error_string.restype = ctypes.c_char_p

@@ -123,7 +123,9 @@ def pack_pairs(preps, device) -> Batch:
     ``device``) and the fill's plan for that device."""
     B = len(preps)
     dim = preps[0].g1.dim
-    n1max = max(p.g1.size for p in preps)
+    # rows of the diagonal-major planes [B, D, n1max] start on a 32-byte
+    # sector of device memory (K2 and K3 write them whole)
+    n1max = -(-max(p.g1.size for p in preps) // 8) * 8
     n2max = max(p.g2.size for p in preps)
     opmax = max(max(len(p.o1), len(p.o2)) for p in preps)
     f32 = np.float32

@@ -350,3 +350,87 @@ def chase_window_model(fo, O1, O2, C1T, C2T, R1T, R2T, iv, par, Lm: int,
                 lo = 2 * Lm + 5 + r * EV_CAP
                 row[lo:lo + len(lst)] = lst
     return out.astype(np.int32), stats
+
+
+S_OWNERS = ("none", "cell", "masked", "neg_group", "neg_tile")
+
+
+def s_tile_model(plan, dim: int, n1max: int, n2max: int, n1, n2, S=None):
+    """A numpy model of how kernel K2 (csrc/scores.cu: s_kernel) walks its
+    tiles under ``plan`` (scores_cuda.SPlan) for pairs of n1[b] x n2[b]
+    nodes and ``dim`` states padded to n1max x n2max: the same grid, the same test for a tile
+    wholly outside a pair's band, the same per-warp test for a group of
+    diagonals without a cell, the same window columns.  Returns
+    (owners [B, D, n1max]: how many threads store to each position of
+    Sdiag; kinds [B, D, n1max]: an index into S_OWNERS saying what the last
+    of them stored, a band cell, a masked position of a group with cells,
+    NEG of a group without, NEG of a tile outside the band; Sdiag assembled
+    that way from the planes ``S`` [b][n1, n2], or None).  Raises if a
+    thread reads a window column the block's ``plan.smem_bytes`` do not
+    hold, or keeps a cell whose column the window fill left out."""
+    from .align.scores_cuda import S_FIXED_DIMS, s_col_floats
+    from .align.slots import NEG
+
+    TY, DT, CH = plan.threads, plan.dtile, plan.chains
+    B, D = len(n1), n1max + n2max - 1
+    if plan.grid != (-(-n1max // TY), -(-D // DT), B):
+        raise AssertionError("grid %s for %d x %d" % (plan.grid, n1max, n2max))
+    owners = np.zeros((B, D, n1max), np.int32)
+    kinds = np.zeros((B, D, n1max), np.int8)
+    Sd = None if S is None else np.full((B, D, n1max), np.nan, np.float32)
+    g1_tile = 0 if dim in S_FIXED_DIMS else dim * TY
+    cols = (plan.smem_bytes // 4 - g1_tile) // s_col_floats(dim)
+    lane = np.arange(32)
+
+    def store(b, d, y, kind, val=None):
+        np.add.at(owners, (b, d, y), 1)
+        kinds[b, d, y] = kind
+        if Sd is not None:
+            Sd[b, d, y] = NEG if val is None else val
+
+    for b in range(B):
+        n1b, n2b = int(n1[b]), int(n2[b])
+        for by in range(plan.grid[1]):
+            for bx in range(plan.grid[0]):
+                y0, d0 = bx * TY, by * DT
+                dte, rows = min(DT, D - d0), min(TY, n1max - y0)
+                ylast = min(y0 + TY, n1b) - 1
+                if y0 >= n1b or d0 + dte - 1 - y0 < 0 or d0 - ylast >= n2b:
+                    dd, yy = np.meshgrid(np.arange(d0, d0 + dte),
+                                         np.arange(y0, y0 + rows))
+                    store(b, dd.ravel(), yy.ravel(), 4)
+                    continue
+                xlo = d0 - y0 - (TY - 1)
+                xs = xlo + np.arange(TY - 1 + dte)
+                filled = (xs >= 0) & (xs < min(n2b, n2max))
+                for warp in range(TY // 32):
+                    t = warp * 32 + lane
+                    y, row = y0 + t, t < rows
+                    yw = y0 + warp * 32
+                    jlo = yw - d0
+                    jhi = (min(yw + 31, n1b - 1) - d0 + n2b - 1
+                           if yw < n1b else -1)
+                    for j in range(0, dte, CH):
+                        ji = j + np.arange(CH)
+                        st = row[:, None] & (ji < dte)[None, :]
+                        dd = np.broadcast_to(d0 + ji[None, :], st.shape)
+                        yy = np.broadcast_to(y[:, None], st.shape)
+                        if j + CH - 1 < jlo or j > jhi:
+                            store(b, dd[st], yy[st], 3)
+                            continue
+                        col = (TY - 1 - t)[:, None] + ji[None, :]
+                        if col.min() < 0 or col.max() >= cols:
+                            raise AssertionError("column %d..%d of %d"
+                                                 % (col.min(), col.max(), cols))
+                        x = dd - yy
+                        cell = (yy < n1b) & (x >= 0) & (x < n2b) & st
+                        if not (xlo + col == x).all():
+                            raise AssertionError("window column is not x")
+                        if not (col[cell] < len(xs)).all() \
+                                or not filled[col[cell]].all():
+                            raise AssertionError("a cell's column was not "
+                                                 "filled")
+                        store(b, dd[cell], yy[cell], 1,
+                              None if S is None else S[b][yy[cell], x[cell]])
+                        store(b, dd[st & ~cell], yy[st & ~cell], 2)
+    return owners, kinds, Sd

@@ -81,17 +81,6 @@ __device__ __forceinline__ float tail_at(const float* ring, const Pair& p,
   return ring[(size_t)(d % p.R) * p.n1max + y];
 }
 
-__device__ __forceinline__ void cp_async4(unsigned smem_addr,
-                                          const void* gmem) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;" ::: "memory");
-}
-
 // Butterfly over the warp: smaller value, then smaller key.
 __device__ __forceinline__ void warp_first_min(float& v, int& key) {
   for (int off = 16; off > 0; off >>= 1) {

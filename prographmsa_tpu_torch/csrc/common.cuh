@@ -42,3 +42,16 @@ __device__ __forceinline__ float pgm_clamp_neg(float v) {
   const float neg = pgm_f(PGM_NEG_BITS);
   return (v < neg) ? neg : v;
 }
+
+// One 4-byte asynchronous copy from global to shared memory (the address
+// from __cvta_generic_to_shared), and the wait for all of this thread's.
+__device__ __forceinline__ void cp_async4(unsigned smem_addr,
+                                          const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}

@@ -27,8 +27,10 @@ from prographmsa_tpu_torch import _build, checks
 from prographmsa_tpu_torch.align import graph_dp_cuda as gdp
 from prographmsa_tpu_torch.align.fill_cuda import SMS
 from prographmsa_tpu_torch.align.scores_cuda import (
-    DGROUPS, FILL_THREADS, MAX_DIM, XVECS, exact_s, exact_s_torch,
-    plan_s_prep, s_prep, s_prep_torch, unshear)
+    DGROUPS, FILL_THREADS, MAX_DIM, S_CHAINS, S_DTILES, S_FILL_TILES,
+    S_FIXED_DIMS, S_SMEM_MAX, S_THREADS, XVECS, exact_s, exact_s_torch,
+    plan_s, plan_s_prep, s_col_floats, s_plane, s_plane_torch, s_prep,
+    s_prep_torch, s_smem_bytes, unshear)
 from prographmsa_tpu_torch.device import on_cuda, resolve_device
 
 FIX = os.path.join(os.path.dirname(__file__), "..", "fixtures")
@@ -222,6 +224,200 @@ def test_plan_s_prep_refuses_what_the_kernel_does_not_take():
             plan_s_prep(**kw)
 
 
+# (pairs, states, padded n1, largest n2) of the timed shapes and the edges
+# of what K2 takes -> (rows y per block, diagonals per block)
+S_PLAN_CASES = [
+    ("fam100_largest_level", (39, 20, 216, 210), (128, 32)),
+    ("chains_8x2000", (8, 20, 2008, 1982), (128, 64)),
+    ("fam500_root_one_pair", (1, 20, 1520, 924), (128, 16)),
+    ("fam500_level0", (186, 20, 320, 320), (128, 64)),
+    ("one_short_dna_pair", (1, 4, 208, 203), (128, 8)),
+    ("dna_level", (60, 4, 1200, 1200), (64, 64)),
+    ("codon_level", (12, 61, 304, 301), (64, 16)),
+    ("widest_states", (1, MAX_DIM, 2008, 2001), (128, 32)),
+    ("width_not_compiled_in", (3, 23, 104, 100), (128, 8)),
+    ("narrow_planes", (500, 20, 40, 36), (64, 64)),
+    ("rows_not_padded", (5, 20, 203, 317), (128, 8)),
+]
+
+
+@pytest.mark.parametrize("name,shape,layout", S_PLAN_CASES,
+                         ids=[c[0] for c in S_PLAN_CASES])
+def test_plan_s_layout(name, shape, layout):
+    B, dim, n1max, n2max = shape
+    plan = plan_s(B, dim, n1max, n2max)
+    assert (plan.threads, plan.dtile) == layout
+    assert plan.threads in S_THREADS and plan.dtile in S_DTILES
+    assert plan.chains == S_CHAINS[0]
+    D = n1max + n2max - 1
+    ytiles = -(-n1max // plan.threads)
+    assert plan.grid == (ytiles, -(-D // plan.dtile), B)
+    assert max(plan.grid[1:]) <= 65535
+    assert plan.smem_bytes == s_smem_bytes(dim, plan.threads, plan.dtile,
+                                           plan.chains) <= S_SMEM_MAX
+    # the last y-tile is at least half rows of the plane, or blocks are the
+    # smallest there are
+    last = n1max - (ytiles - 1) * plan.threads
+    assert 2 * last >= plan.threads or plan.threads == S_THREADS[-1]
+    # a launch that can fill the card does, with the most diagonals per
+    # block that still do and that fit the shared memory
+    band = lambda d: B * ytiles * -(-(n2max + plan.threads - 1) // d)
+    fits = [d for d in S_DTILES
+            if s_smem_bytes(dim, plan.threads, d, plan.chains) <= S_SMEM_MAX]
+    enough = [d for d in fits if band(d) >= S_FILL_TILES * SMS]
+    assert plan.dtile == (enough[0] if enough else fits[-1])
+
+
+def test_s_smem_bytes_columns():
+    """A window column holds t2[0..dim) and v2; 16-byte reads where the
+    width is compiled in want a length of 4 more than a multiple of 8
+    floats, 4-byte reads an odd one, for lanes on neighbouring columns to
+    fall on different banks."""
+    for dim in range(1, MAX_DIM + 1):
+        col = s_col_floats(dim)
+        if dim in S_FIXED_DIMS:
+            assert dim + 1 <= col <= dim + 8 and col % 8 == 4
+            # a quarter of a warp, 16 bytes a lane, covers the 32 banks
+            assert len({(col * lane + w) % 32 for lane in range(8)
+                        for w in range(4)}) == 32
+            assert s_smem_bytes(dim, 32, 8, 1) == 4 * 39 * col
+        else:
+            assert dim + 1 <= col <= dim + 2 and col % 2 == 1
+            assert len({col * lane % 32 for lane in range(32)}) == 32
+            assert s_smem_bytes(dim, 32, 8, 1) == 4 * (32 * dim + 39 * col)
+    # diagonals are taken in whole groups of chains
+    assert s_smem_bytes(20, 64, 5, 4) == s_smem_bytes(20, 64, 8, 4)
+    assert s_smem_bytes(20, 64, 5, 1) < s_smem_bytes(20, 64, 5, 2)
+
+
+def test_plan_s_refuses_what_the_kernel_does_not_take():
+    for bad in (dict(dim=0), dict(dim=MAX_DIM + 1), dict(threads=48),
+                dict(threads=256), dict(chains=3), dict(chains=8),
+                dict(dtile=0), dict(dtile=-4),
+                dict(dtile=4096),                  # shared memory
+                dict(dim=MAX_DIM, threads=128, dtile=64),
+                dict(n2max=70000, dtile=1)):       # grid
+        kw = dict(B=2, dim=20, n1max=200, n2max=204)
+        kw.update(bad)
+        with pytest.raises(ValueError):
+            plan_s(**kw)
+    for ok in (dict(dtile=1), dict(dtile=7, chains=4),
+               dict(threads=32, dtile=404),       # more than D diagonals
+               dict(dim=MAX_DIM, threads=128, dtile=32)):
+        kw = dict(B=2, dim=20, n1max=200, n2max=204)
+        kw.update(ok)
+        assert plan_s(**kw).dtile == ok["dtile"]
+
+
+# (n1max, n2max, n1 per pair, n2 per pair): a 3 x 2 pair beside long ones
+# with sides that are no multiples of 4; n1 << n2 and n1 >> n2 with sides
+# that are (tiles wholly below, above and across the band); one y-tile of
+# padding rows only
+S_MODEL_SHAPES = {
+    "tiny_beside_long": (43, 57, (43, 3, 21), (57, 2, 57)),
+    "n1_much_less_than_n2": (64, 132, (64, 10), (132, 131)),
+    "n1_much_more_than_n2": (152, 12, (152, 90), (12, 5)),
+    "padded_y_tile": (72, 30, (30, 17), (30, 9)),
+}
+
+
+@pytest.mark.parametrize("chains", S_CHAINS)
+@pytest.mark.parametrize("threads", S_THREADS)
+@pytest.mark.parametrize("shape", list(S_MODEL_SHAPES))
+def test_s_tiles_own_each_position_once(shape, threads, chains):
+    """Under every layout each position of Sdiag is stored by exactly one
+    thread of K2's grid (a band cell, a masked position of a group with
+    cells, NEG of a group or of a tile without), every cell reads its own
+    node x from a window column the tile filled, and the array that comes
+    out is S sheared with NEG elsewhere."""
+    n1max, n2max, n1, n2 = S_MODEL_SHAPES[shape]
+    rng = np.random.RandomState(n1max + 7 * threads + chains)
+    D = n1max + n2max - 1
+    d = np.arange(D)[:, None]
+    y = np.arange(n1max)[None, :]
+    kinds_seen = set()
+    for dtile in (1, 7, 32, D + 5):
+        plan = plan_s(len(n1), 20, n1max, n2max, threads=threads,
+                      dtile=dtile, chains=chains)
+        S = [rng.rand(a, b).astype(np.float32) for a, b in zip(n1, n2)]
+        owners, kinds, Sd = checks.s_tile_model(plan, 20, n1max, n2max, n1,
+                                                n2, S)
+        assert (owners == 1).all()
+        for b in range(len(n1)):
+            cell = (y < n1[b]) & (d - y >= 0) & (d - y < n2[b])
+            assert ((kinds[b] == checks.S_OWNERS.index("cell")) == cell).all()
+            assert (Sd[b][~cell] == np.float32(NEG)).all()
+            yy, xx = np.nonzero(np.ones((n1[b], n2[b])))
+            assert np.array_equal(Sd[b][yy + xx, yy], S[b][yy, xx])
+        kinds_seen |= {checks.S_OWNERS[k] for k in np.unique(kinds)}
+    assert {"cell", "masked", "neg_group"} <= kinds_seen
+    if shape != "tiny_beside_long":
+        assert "neg_tile" in kinds_seen
+
+
+@pytest.mark.parametrize("dim", [4, 20, 23, 61, MAX_DIM])
+def test_s_tile_model_notices_a_window_too_short(dim):
+    """The shared memory plan_s asks for holds every column a tile reads,
+    at each width, and the model is no rubber stamp: with one column less,
+    or under a grid that is not the plan's, it raises."""
+    shape = (40, 40, [40], [40])
+    for chains in S_CHAINS:
+        plan = plan_s(1, dim, 40, 40, threads=32, dtile=7, chains=chains)
+        owners, _, _ = checks.s_tile_model(plan, dim, *shape)
+        assert (owners == 1).all()
+        short = plan._replace(smem_bytes=plan.smem_bytes - 4)
+        with pytest.raises(AssertionError, match="column"):
+            checks.s_tile_model(short, dim, *shape)
+    with pytest.raises(AssertionError, match="grid"):
+        checks.s_tile_model(plan._replace(threads=64), dim, *shape)
+
+
+def test_s_tile_walk_reproduces_the_plain_plane():
+    """The tile walk under the planner's own layout, fed the pairs' real S
+    planes, gives the plain version's Sdiag bit for bit."""
+    items, bt = _batch(_pairs("merged") + _pairs("chains"))
+    Sdiag = exact_s_torch(bt.g1T, bt.g2T, bt.M, bt.pi, bt.mi, bt.n1, bt.n2)
+    B, dim, n1max = bt.g1T.shape
+    n2max = bt.g2T.shape[2]
+    n1, n2 = bt.n1.tolist(), bt.n2.tolist()
+    S = [unshear(Sdiag, a, b, k) for k, (a, b) in enumerate(zip(n1, n2))]
+    for plan in (plan_s(B, dim, n1max, n2max),
+                 plan_s(B, dim, n1max, n2max, threads=32, dtile=5, chains=2)):
+        owners, _, Sd = checks.s_tile_model(plan, dim, n1max, n2max, n1, n2,
+                                            S)
+        assert (owners == 1).all()
+        assert np.array_equal(Sd.view(np.uint32),
+                              Sdiag.numpy().view(np.uint32))
+
+
+def test_batch_rows_start_on_sectors():
+    """pack_pairs pads n1max to a multiple of 8 floats, so every row of the
+    diagonal-major planes starts on a 32-byte sector; the padding rows are
+    outside every pair."""
+    items, bt = _batch(_pairs("chains"))
+    n1max = bt.g1T.shape[2]
+    most = max(g1.size for g1, _, _, _ in items)
+    assert n1max % 8 == 0 and most <= n1max < most + 8
+    assert int(bt.n1.max()) == most
+    assert not bt.g1T[:, :, most:].any()
+
+
+def test_wrappers_take_a_plan_on_the_cpu():
+    """On CPU tensors s_plane and exact_s return the plain version whatever
+    the plan."""
+    items, bt = _batch(_pairs("chains")[:2])
+    args = (bt.g1T, bt.g2T, bt.M, bt.pi, bt.mi, bt.n1, bt.n2)
+    B, dim, n1max = bt.g1T.shape
+    plan = plan_s(B, dim, n1max, bt.g2T.shape[2], threads=32, dtile=3,
+                  chains=1)
+    want = exact_s_torch(*args)
+    assert torch.equal(exact_s(*args, plan=plan), want)
+    t2, v2 = s_prep_torch(bt.g2T, bt.M, bt.pi)
+    sa = (bt.g1T, t2, v2, bt.pi, bt.mi, bt.n1, bt.n2)
+    assert torch.equal(s_plane(*sa, plan=plan), want)
+    assert torch.equal(s_plane_torch(*sa), want)
+
+
 def _random_s_prep_inputs(B, dim, n2max, device="cpu"):
     rng = np.random.RandomState(B * 1000 + dim * 10 + n2max)
     t = lambda *shape: torch.from_numpy(
@@ -240,6 +436,18 @@ def test_cuda_s_kernels_match_plain_and_host():
         assert torch.equal(Sk.view(torch.int32),
                            exact_s_torch(*args).view(torch.int32))
         _assert_planes(items, Sk)
+        # K2 under every block size and number of chains, odd tiles
+        B, dim, n1max = bt.g1T.shape
+        t2, v2 = s_prep(bt.g2T, bt.M, bt.pi)
+        for threads in S_THREADS:
+            for chains in S_CHAINS:
+                for dtile in (1, 7, 32):
+                    got = s_plane(bt.g1T, t2, v2, bt.pi, bt.mi, bt.n1, bt.n2,
+                                  plan=plan_s(B, dim, n1max, bt.g2T.shape[2],
+                                              threads=threads, dtile=dtile,
+                                              chains=chains))
+                    assert torch.equal(got.view(torch.int32),
+                                       Sk.view(torch.int32))
     # K1 under every layout the planner can choose, at dim 4, 20, 61 and 64
     for dim in (4, 20, 61, MAX_DIM):
         for n2max in (203, 204):
