@@ -20,14 +20,16 @@ events, free of Python.  ``launch_floor_ms`` is an empty grid timed the
 same way, what any launch costs there.
 
 The bound of a kernel is the larger of its bytes (each input read once,
-each output written once, the pairs' own cells only, but of K2 the whole
-padded array it writes, NEG included) over HBM_BYTES_S and
+each output written once, the pairs' own cells only) over HBM_BYTES_S and
 its operations over F32_INSTR_S: the H100 SXM's published peaks, the float32
 one halved because it counts a fused multiply-add as two and the kernels'
 products and sums are separate roundings, one instruction each (K2's count
 per cell is S_CELL_OPS, term by term).  ``bound_old_ms`` is the bound as it
-was reckoned before (F32_FLOPS, 12 operations per cell of K2, the pairs'
-cells only as K2's output).  The
+was reckoned before (F32_FLOPS, 12 operations per cell of K2).  K2 writes
+more than the bound counts, the whole padded array [B, D, n1max] with NEG
+outside the pairs' cells; that write stands beside the bound and not in it:
+``write_floor_ms`` is the array's bytes over HBM_BYTES_S and
+``fill_device_ms`` one ``fill_`` of an array of that size, measured.  The
 chase is a chain of dependent reads that no roofline shows, so it has a
 second bound, ``chain_ms``: the longest walk's steps times one dependent
 read from shared memory (``chain_l2_ms``: from L2), both latencies measured
@@ -60,7 +62,7 @@ from prographmsa_tpu_torch.align.fill_cuda import (card_limits, fill,
                                                    fill_torch, plan_fill)
 from prographmsa_tpu_torch.align.slots import COST_INF
 from prographmsa_tpu_torch.align.scores_cuda import (
-    DGROUPS, S_CHAINS, S_SMEM_MAX, S_THREADS, XVECS, exact_s, plan_s,
+    DGROUPS, S_SMEM_MAX, S_THREADS, XVECS, exact_s, plan_s,
     plan_s_prep, s_plane, s_plane_torch, s_prep, s_prep_torch, s_smem_bytes,
     unshear)
 
@@ -157,15 +159,13 @@ def s_prep_check(g2T, M, pi):
 
 def s_layouts(B, dim, n1max, n2max):
     """The launch's own plan of K2 (None) and every layout it is compiled
-    for that these sizes allow: each number of chains with each block size,
-    under tiles of one diagonal, of 7 (no group of chains divides it), of 32
+    for that these sizes allow: each block size under tiles of one diagonal,
+    of 7 (no whole groups of the diagonals a thread runs at a time), of 32
     and of more diagonals than the plane has."""
     D = n1max + n2max - 1
-    return [None] + [plan_s(B, dim, n1max, n2max, threads=t, dtile=d,
-                            chains=c)
-                     for c in S_CHAINS for t in S_THREADS
-                     for d in (1, 7, 32, D + 5)
-                     if s_smem_bytes(dim, t, d, c) <= S_SMEM_MAX]
+    return [None] + [plan_s(B, dim, n1max, n2max, threads=t, dtile=d)
+                     for t in S_THREADS for d in (1, 7, 32, D + 5)
+                     if s_smem_bytes(dim, t, d) <= S_SMEM_MAX]
 
 
 def s_plane_check(g1T, t2, v2, pi, mi, n1, n2):
@@ -696,8 +696,9 @@ def phase_walls(tmp):
     say("startup", t0, **startup)
 
 
-def time_cuda(fn, reps):
-    fn()
+def time_cuda(fn, reps, warm=True):
+    if warm:
+        fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
@@ -707,6 +708,17 @@ def time_cuda(fn, reps):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def time_plain(plain, reps):
+    """(two call times in ms, the result) of a kernel's plain version.  Its
+    first call, whose result the kernel is held against, is the first
+    reading; a plain version of a tenth of a second or more (K3's and X1's
+    are Python loops over diagonals and steps, seconds long) is then timed
+    without another warm-up call."""
+    res = []
+    first = time_cuda(lambda: res.append(plain()), 1, warm=False)
+    return (first, time_cuda(plain, reps, warm=first < 100.0)), res[0]
 
 
 def device_time(fn, reps):
@@ -755,20 +767,17 @@ def card_floors(dev):
             "l2_read_ms": read["l2"]}
 
 
-def bounds(preps, steps, Lm, n1max, n2max):
+def bounds(preps, steps, Lm):
     """Per kernel (bound_ms, bound_by, old bound_ms) on these pairs: the
     larger of bytes over the memory rate and operations over the rate the
     card issues them at, from the pairs' own sizes; the chase counts the
     steps its walks took.  No counted operation is a fused multiply-add, so
-    the rate is F32_INSTR_S; K2's output is the whole padded array
-    [D, n1max] of each pair, NEG outside its cells included.  The old bound
-    took F32_FLOPS, 12 operations for a cell of K2 beyond num, and of K2's
-    output the pairs' cells only."""
+    the rate is F32_INSTR_S.  The old bound took F32_FLOPS and 12
+    operations for a cell of K2 beyond num."""
     by = {k: 0.0 for k in KERNELS}
     op = {k: 0.0 for k in KERNELS}
-    op_s_old = by_s_old = 0.0
+    op_s_old = 0.0
     s_cell = sum(S_CELL_OPS.values())
-    s_plane_bytes = 4 * (n1max + n2max - 1) * n1max
     for k, p in enumerate(preps):
         n1, n2, dim = p.g1.size, p.g2.size, p.g1.dim
         e1 = int(np.count_nonzero(p.C1 < COST_INF))
@@ -776,9 +785,7 @@ def bounds(preps, steps, Lm, n1max, n2max):
         nl1, nl2 = len(p.o1), len(p.o2)
         by["s_prep"] += 4 * (dim * n2 + dim * dim + dim + dim * n2 + n2)
         op["s_prep"] += 2 * n2 * dim * dim + 2 * n2 * dim
-        s_in = 4 * (dim * n1 + dim * n2 + n2 + dim + 1)
-        by["s"] += s_in + s_plane_bytes
-        by_s_old += s_in + 4 * n1 * n2
+        by["s"] += 4 * (dim * n1 + dim * n2 + n2 + dim + 1 + n1 * n2)
         # num per cell, the packet dot v1 per row, the rest per cell
         op["s"] += 2 * dim * n1 * n2 + (2 * dim + 3) * n1 + s_cell * n1 * n2
         op_s_old += 2 * dim * n1 * n2 + 2 * dim * n1 + 12 * n1 * n2
@@ -793,8 +800,7 @@ def bounds(preps, steps, Lm, n1max, n2max):
     out = {}
     for k in KERNELS:
         tb, to = by[k] / HBM_BYTES_S * 1e3, op[k] / F32_INSTR_S * 1e3
-        old = max((by_s_old if k == "s" else by[k]) / HBM_BYTES_S * 1e3,
-                  (op_s_old if k == "s" else op[k]) / F32_FLOPS * 1e3)
+        old = max(tb, (op_s_old if k == "s" else op[k]) / F32_FLOPS * 1e3)
         out[k] = (max(tb, to), "bytes" if tb >= to else "operations", old)
     return out
 
@@ -816,15 +822,24 @@ def kernel_times(items, dev, reps_kernel, reps_plain, floors):
     }
     out, dev_ms = {}, {}
     for k, (kern, plain) in runs.items():
-        a, b = kern(), plain()
+        (p0, p1), b = time_plain(plain, reps_plain)
+        a = kern()
         for name, x, y in zip(("out%d" % i for i in range(9)),
                               a if isinstance(a, tuple) else (a,),
                               b if isinstance(b, tuple) else (b,)):
             diff(k, x, y, name)
-        out[k] = (time_cuda(plain, reps_plain), time_cuda(kern, reps_kernel),
-                  time_cuda(plain, reps_plain), time_cuda(kern, reps_kernel))
+        out[k] = (p0, time_cuda(kern, reps_kernel),
+                  p1, time_cuda(kern, reps_kernel))
         dev_ms[k] = min(device_time(kern, reps_kernel),
                         device_time(kern, reps_kernel))
+    # K2's write: the whole padded array, NEG outside the pairs' cells.  It
+    # stands beside the bound, which counts the cells only
+    pad = torch.empty_like(Sd)
+    s_write = {"write_floor_ms": pad.numel() * 4 / HBM_BYTES_S * 1e3,
+               "fill_device_ms": min(device_time(lambda: pad.fill_(-1.0),
+                                                 reps_kernel)
+                                     for _ in range(2))}
+    del pad
     # K1's yardstick: one batched product and one matrix-vector product
     # compute t2 and v2 in another summation order; the port never calls it
     Mt = bt.M.transpose(1, 2).contiguous()
@@ -892,7 +907,7 @@ def kernel_times(items, dev, reps_kernel, reps_plain, floors):
     gdp.align_pairs_device(items, dev)
     batch_ms = (time.perf_counter() - t0) * 1e3
     return {"times": out, "device": dev_ms,
-            "bounds": bounds(preps, stats[:, 0], bt.Lm, n1max, n2max),
+            "bounds": bounds(preps, stats[:, 0], bt.Lm), "s_write": s_write,
             "chain": chain,
             "library": library, "library_device": library_dev,
             "library_max_abs_diff": lib_err, "exact_s": exact,
@@ -937,6 +952,7 @@ def phase_times(dev, largest, root):
             chase_sweep_device_ms=cj(r4(r["chase_sweep"])),
             s_prep_plan=cj(r["s_prep_plan"]._asdict()),
             s_plan=cj(r["s_plan"]._asdict()),
+            s_padded_write_ms=cj(r4(r["s_write"])),
             s_prep_library_ms="%.4f" % r["library"]["s_prep"],
             s_prep_library_device_ms="%.4f" % r["library_device"]["s_prep"],
             s_prep_library_max_abs_diff="%.3g" % r["library_max_abs_diff"],
@@ -994,6 +1010,8 @@ def main():
                 row["window_fills" + sfx] = r["walks"]["window_fills"]
                 row["steps" + sfx] = r["walks"]["steps"]
             if k == "s":
+                for name_, ms in r["s_write"].items():
+                    row[name_ + sfx] = ms
                 for name_, (call, device) in r["exact_s"].items():
                     row["exact_s_%s_ms%s" % (name_, sfx)] = call
                     row["exact_s_%s_device_ms%s" % (name_, sfx)] = device

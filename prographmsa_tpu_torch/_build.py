@@ -113,8 +113,8 @@ def lib() -> ctypes.CDLL:
         L = ctypes.CDLL(build())
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         L.pgm_s_prep.argtypes = [p, p, p] + [i] * 6 + [p, p, p]
-        L.pgm_s.argtypes = [p] * 7 + [i] * 5 + [f] * 3 + [i] * 3 + [p, p]
-        L.pgm_exact_s.argtypes = ([p] * 7 + [i] * 5 + [f] * 3 + [i] * 7
+        L.pgm_s.argtypes = [p] * 7 + [i] * 5 + [f] * 3 + [i] * 2 + [p, p]
+        L.pgm_exact_s.argtypes = ([p] * 7 + [i] * 5 + [f] * 3 + [i] * 6
                                   + [p, p, p])
         L.pgm_q_check.argtypes = [f, f, p, p]
         L.pgm_empty.argtypes = [p]

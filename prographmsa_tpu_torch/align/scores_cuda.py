@@ -39,8 +39,8 @@ DGROUPS = (8, 4, 2, 1)            # outputs d per thread K1 is compiled for
 XVECS = (4, 1)                    # nodes x per thread (4: 16-byte loads)
 FILL_THREADS = 128                # a launch fills the card when it has this
                                   # many threads for every SM
-S_THREADS = (128, 64, 32)         # rows y per block K2 takes
-S_CHAINS = (4, 2, 1)              # diagonals a thread of K2 runs at a time
+S_THREADS = (128, 64)             # rows y per block K2 takes
+S_CHAINS = 4                      # diagonals a thread of K2 runs at a time
 S_DTILES = (64, 32, 16, 8)        # diagonals per block the planner picks from
 S_FIXED_DIMS = (4, 20, 61, MAX_DIM)   # widths K2 keeps a g1 row in registers
                                       # for (DNA, protein, codons, the widest)
@@ -98,11 +98,10 @@ class SPlan(NamedTuple):
     """How one launch of K2 is laid out on the card: a grid of
     (y-tiles, d-tiles, pairs) blocks, a block owning ``threads`` rows y and
     ``dtile`` diagonals d, a thread one row, walking the tile's diagonals
-    ``chains`` at a time; ``smem_bytes`` of shared memory hold the tile's
+    S_CHAINS at a time; ``smem_bytes`` of shared memory hold the tile's
     window of t2 and v2 (and, at a width not in S_FIXED_DIMS, its g1)."""
     threads: int
     dtile: int
-    chains: int
     grid: tuple
     smem_bytes: int
 
@@ -114,37 +113,33 @@ def s_col_floats(dim: int) -> int:
     return (dim + 4) // 8 * 8 + 4 if dim in S_FIXED_DIMS else (dim + 1) | 1
 
 
-def s_smem_bytes(dim: int, threads: int, dtile: int, chains: int) -> int:
+def s_smem_bytes(dim: int, threads: int, dtile: int) -> int:
     """Shared memory of one block of K2: ``threads - 1 + dtile`` window
-    columns (dtile rounded up to whole groups of ``chains``), and the
+    columns (dtile rounded up to whole groups of S_CHAINS), and the
     block's g1 tile where the width is not compiled in."""
-    cols = threads - 1 + -(-dtile // chains) * chains
+    cols = threads - 1 + -(-dtile // S_CHAINS) * S_CHAINS
     g1 = 0 if dim in S_FIXED_DIMS else dim * threads
     return 4 * (g1 + cols * s_col_floats(dim))
 
 
 @functools.lru_cache(maxsize=256)
 def plan_s(B: int, dim: int, n1max: int, n2max: int, sms: int = SMS,
-           threads: int | None = None, dtile: int | None = None,
-           chains: int | None = None) -> SPlan:
+           threads: int | None = None,
+           dtile: int | None = None) -> SPlan:
     """Layout of K2 for B pairs of n1max x n2max nodes and dim states.
     ``threads``: the most rows per block whose last y-tile is still at least
     half rows of the plane.  ``dtile``: the most diagonals per block (they
     share one load of the thread's g1 row, one v1 and one window fill) that
     fit the shared memory and still leave S_FILL_TILES tiles on the pairs'
     bands for every one of the card's ``sms`` SMs, so that a launch of one
-    pair spreads over the card.  ``threads``, ``dtile`` and ``chains``
-    override the choice (checks and measurements only)."""
+    pair spreads over the card.  ``threads`` and ``dtile`` override the
+    choice (checks and measurements only)."""
     if not 1 <= dim <= MAX_DIM:
         raise ValueError("dim %d outside 1..%d" % (dim, MAX_DIM))
     if threads is not None and threads not in S_THREADS:
         raise ValueError("threads %d not in %s" % (threads, S_THREADS))
-    if chains is not None and chains not in S_CHAINS:
-        raise ValueError("chains %d not in %s" % (chains, S_CHAINS))
     if dtile is not None and dtile < 1:
         raise ValueError("dtile %d" % dtile)
-    if chains is None:
-        chains = S_CHAINS[0]
     if threads is None:
         threads = next((t for t in S_THREADS
                         if 2 * (n1max - (-(-n1max // t) - 1) * t) >= t),
@@ -153,11 +148,11 @@ def plan_s(B: int, dim: int, n1max: int, n2max: int, sms: int = SMS,
     D = n1max + n2max - 1
     if dtile is None:
         fits = [d for d in S_DTILES
-                if s_smem_bytes(dim, threads, d, chains) <= S_SMEM_MAX]
+                if s_smem_bytes(dim, threads, d) <= S_SMEM_MAX]
         band = lambda d: B * ytiles * -(-(n2max + threads - 1) // d)
         dtile = next((d for d in fits if band(d) >= S_FILL_TILES * sms),
                      fits[-1])
-    smem = s_smem_bytes(dim, threads, dtile, chains)
+    smem = s_smem_bytes(dim, threads, dtile)
     grid = (ytiles, -(-D // dtile), B)
     if smem > S_SMEM_MAX:
         raise ValueError("dtile %d with %d threads and dim %d needs %d bytes "
@@ -165,7 +160,7 @@ def plan_s(B: int, dim: int, n1max: int, n2max: int, sms: int = SMS,
                          % (dtile, threads, dim, smem, S_SMEM_MAX))
     if max(grid[1:]) > 65535:
         raise ValueError("grid %s" % (grid,))
-    return SPlan(threads, dtile, chains, grid, smem)
+    return SPlan(threads, dtile, grid, smem)
 
 
 def exact_s(g1T, g2T, M, pi, mi, n1, n2, pdl: bool = True,
@@ -194,8 +189,7 @@ def exact_s(g1T, g2T, M, pi, mi, n1, n2, pdl: bool = True,
     _build.launch(("s_prep", "s"), _build.lib().pgm_exact_s, p(g1T), p(g2T),
                   p(M), p(pi), p(mi), p(n1), p(n2), B, dim, n1max, n2max, D,
                   *_LS, prep.threads, prep.dgroup, prep.xvec, int(pdl),
-                  plan.threads, plan.dtile, plan.chains,
-                  p(ws), p(Sdiag))
+                  plan.threads, plan.dtile, p(ws), p(Sdiag))
     return Sdiag
 
 
@@ -239,7 +233,7 @@ def s_plane(g1T, t2, v2, pi, mi, n1, n2, plan: SPlan | None = None):
     p = _build.ptr
     _build.launch("s", _build.lib().pgm_s, p(g1T), p(t2), p(v2), p(pi),
                   p(mi), p(n1), p(n2), B, dim, n1max, n2max, D, *_LS,
-                  plan.threads, plan.dtile, plan.chains, p(Sdiag))
+                  plan.threads, plan.dtile, p(Sdiag))
     return Sdiag
 
 

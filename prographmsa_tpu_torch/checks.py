@@ -368,10 +368,10 @@ def s_tile_model(plan, dim: int, n1max: int, n2max: int, n1, n2, S=None):
     that way from the planes ``S`` [b][n1, n2], or None).  Raises if a
     thread reads a window column the block's ``plan.smem_bytes`` do not
     hold, or keeps a cell whose column the window fill left out."""
-    from .align.scores_cuda import S_FIXED_DIMS, s_col_floats
+    from .align.scores_cuda import S_CHAINS, S_FIXED_DIMS, s_col_floats
     from .align.slots import NEG
 
-    TY, DT, CH = plan.threads, plan.dtile, plan.chains
+    TY, DT, CH = plan.threads, plan.dtile, S_CHAINS
     B, D = len(n1), n1max + n2max - 1
     if plan.grid != (-(-n1max // TY), -(-D // DT), B):
         raise AssertionError("grid %s for %d x %d" % (plan.grid, n1max, n2max))
@@ -419,7 +419,9 @@ def s_tile_model(plan, dim: int, n1max: int, n2max: int, n1, n2, S=None):
                             store(b, dd[st], yy[st], 3)
                             continue
                         col = (TY - 1 - t)[:, None] + ji[None, :]
-                        if col.min() < 0 or col.max() >= cols:
+                        # columns the fill wrote (copied or zeroed)
+                        written = TY - 1 + -(-dte // CH) * CH
+                        if col.min() < 0 or col.max() >= min(cols, written):
                             raise AssertionError("column %d..%d of %d"
                                                  % (col.min(), col.max(), cols))
                         x = dd - yy

@@ -237,6 +237,9 @@ S_PLAN_CASES = [
     ("widest_states", (1, MAX_DIM, 2008, 2001), (128, 32)),
     ("width_not_compiled_in", (3, 23, 104, 100), (128, 8)),
     ("narrow_planes", (500, 20, 40, 36), (64, 64)),
+    ("narrow_against_long", (64, 20, 40, 300), (64, 16)),
+    ("one_narrow_pair_against_a_long_one", (1, 20, 40, 2000), (64, 8)),
+    ("rows_just_over_half_a_block", (24, 20, 72, 300), (128, 8)),
     ("rows_not_padded", (5, 20, 203, 317), (128, 8)),
 ]
 
@@ -248,13 +251,12 @@ def test_plan_s_layout(name, shape, layout):
     plan = plan_s(B, dim, n1max, n2max)
     assert (plan.threads, plan.dtile) == layout
     assert plan.threads in S_THREADS and plan.dtile in S_DTILES
-    assert plan.chains == S_CHAINS[0]
     D = n1max + n2max - 1
     ytiles = -(-n1max // plan.threads)
     assert plan.grid == (ytiles, -(-D // plan.dtile), B)
     assert max(plan.grid[1:]) <= 65535
-    assert plan.smem_bytes == s_smem_bytes(dim, plan.threads, plan.dtile,
-                                           plan.chains) <= S_SMEM_MAX
+    assert plan.smem_bytes == s_smem_bytes(dim, plan.threads,
+                                           plan.dtile) <= S_SMEM_MAX
     # the last y-tile is at least half rows of the plane, or blocks are the
     # smallest there are
     last = n1max - (ytiles - 1) * plan.threads
@@ -263,7 +265,7 @@ def test_plan_s_layout(name, shape, layout):
     # block that still do and that fit the shared memory
     band = lambda d: B * ytiles * -(-(n2max + plan.threads - 1) // d)
     fits = [d for d in S_DTILES
-            if s_smem_bytes(dim, plan.threads, d, plan.chains) <= S_SMEM_MAX]
+            if s_smem_bytes(dim, plan.threads, d) <= S_SMEM_MAX]
     enough = [d for d in fits if band(d) >= S_FILL_TILES * SMS]
     assert plan.dtile == (enough[0] if enough else fits[-1])
 
@@ -280,19 +282,20 @@ def test_s_smem_bytes_columns():
             # a quarter of a warp, 16 bytes a lane, covers the 32 banks
             assert len({(col * lane + w) % 32 for lane in range(8)
                         for w in range(4)}) == 32
-            assert s_smem_bytes(dim, 32, 8, 1) == 4 * 39 * col
+            assert s_smem_bytes(dim, 32, 8) == 4 * 39 * col
         else:
             assert dim + 1 <= col <= dim + 2 and col % 2 == 1
             assert len({col * lane % 32 for lane in range(32)}) == 32
-            assert s_smem_bytes(dim, 32, 8, 1) == 4 * (32 * dim + 39 * col)
-    # diagonals are taken in whole groups of chains
-    assert s_smem_bytes(20, 64, 5, 4) == s_smem_bytes(20, 64, 8, 4)
-    assert s_smem_bytes(20, 64, 5, 1) < s_smem_bytes(20, 64, 5, 2)
+            assert s_smem_bytes(dim, 32, 8) == 4 * (32 * dim + 39 * col)
+    # diagonals are taken in whole groups of S_CHAINS
+    assert S_CHAINS == 4
+    assert s_smem_bytes(20, 64, 5) == s_smem_bytes(20, 64, 8)
+    assert s_smem_bytes(20, 64, 4) < s_smem_bytes(20, 64, 5)
 
 
 def test_plan_s_refuses_what_the_kernel_does_not_take():
     for bad in (dict(dim=0), dict(dim=MAX_DIM + 1), dict(threads=48),
-                dict(threads=256), dict(chains=3), dict(chains=8),
+                dict(threads=256), dict(threads=32),
                 dict(dtile=0), dict(dtile=-4),
                 dict(dtile=4096),                  # shared memory
                 dict(dim=MAX_DIM, threads=128, dtile=64),
@@ -301,58 +304,68 @@ def test_plan_s_refuses_what_the_kernel_does_not_take():
         kw.update(bad)
         with pytest.raises(ValueError):
             plan_s(**kw)
-    for ok in (dict(dtile=1), dict(dtile=7, chains=4),
-               dict(threads=32, dtile=404),       # more than D diagonals
+    for ok in (dict(dtile=1), dict(dtile=7),
+               dict(n1max=100, n2max=104, threads=64,
+                    dtile=204),                   # more than D diagonals
                dict(dim=MAX_DIM, threads=128, dtile=32)):
         kw = dict(B=2, dim=20, n1max=200, n2max=204)
         kw.update(ok)
         assert plan_s(**kw).dtile == ok["dtile"]
+        assert plan_s(**kw).grid[1] == -(-(kw["n1max"] + kw["n2max"] - 1)
+                                         // ok["dtile"])
 
 
 # (n1max, n2max, n1 per pair, n2 per pair): a 3 x 2 pair beside long ones
 # with sides that are no multiples of 4; n1 << n2 and n1 >> n2 with sides
 # that are (tiles wholly below, above and across the band); one y-tile of
-# padding rows only
+# padding rows only; a plane of fewer rows than a warp
 S_MODEL_SHAPES = {
     "tiny_beside_long": (43, 57, (43, 3, 21), (57, 2, 57)),
     "n1_much_less_than_n2": (64, 132, (64, 10), (132, 131)),
     "n1_much_more_than_n2": (152, 12, (152, 90), (12, 5)),
     "padded_y_tile": (72, 30, (30, 17), (30, 9)),
+    "fewer_rows_than_a_warp": (24, 45, (24, 5), (45, 33)),
 }
 
 
-@pytest.mark.parametrize("chains", S_CHAINS)
+# diagonals per block: one; 7 (no whole groups of S_CHAINS); 32; more than
+# the plane has (None)
+S_MODEL_DTILES = (1, 7, 32, None)
+
+
+@pytest.mark.parametrize("dtile", S_MODEL_DTILES)
 @pytest.mark.parametrize("threads", S_THREADS)
 @pytest.mark.parametrize("shape", list(S_MODEL_SHAPES))
-def test_s_tiles_own_each_position_once(shape, threads, chains):
+def test_s_tiles_own_each_position_once(shape, threads, dtile):
     """Under every layout each position of Sdiag is stored by exactly one
     thread of K2's grid (a band cell, a masked position of a group with
     cells, NEG of a group or of a tile without), every cell reads its own
     node x from a window column the tile filled, and the array that comes
     out is S sheared with NEG elsewhere."""
     n1max, n2max, n1, n2 = S_MODEL_SHAPES[shape]
-    rng = np.random.RandomState(n1max + 7 * threads + chains)
+    rng = np.random.RandomState(n1max + 7 * threads + (dtile or 0))
     D = n1max + n2max - 1
     d = np.arange(D)[:, None]
     y = np.arange(n1max)[None, :]
-    kinds_seen = set()
-    for dtile in (1, 7, 32, D + 5):
-        plan = plan_s(len(n1), 20, n1max, n2max, threads=threads,
-                      dtile=dtile, chains=chains)
-        S = [rng.rand(a, b).astype(np.float32) for a, b in zip(n1, n2)]
-        owners, kinds, Sd = checks.s_tile_model(plan, 20, n1max, n2max, n1,
-                                                n2, S)
-        assert (owners == 1).all()
-        for b in range(len(n1)):
-            cell = (y < n1[b]) & (d - y >= 0) & (d - y < n2[b])
-            assert ((kinds[b] == checks.S_OWNERS.index("cell")) == cell).all()
-            assert (Sd[b][~cell] == np.float32(NEG)).all()
-            yy, xx = np.nonzero(np.ones((n1[b], n2[b])))
-            assert np.array_equal(Sd[b][yy + xx, yy], S[b][yy, xx])
-        kinds_seen |= {checks.S_OWNERS[k] for k in np.unique(kinds)}
-    assert {"cell", "masked", "neg_group"} <= kinds_seen
-    if shape != "tiny_beside_long":
-        assert "neg_tile" in kinds_seen
+    plan = plan_s(len(n1), 20, n1max, n2max, threads=threads,
+                  dtile=dtile or D + 5)
+    S = [rng.rand(a, b).astype(np.float32) for a, b in zip(n1, n2)]
+    owners, kinds, Sd = checks.s_tile_model(plan, 20, n1max, n2max, n1, n2, S)
+    assert (owners == 1).all()
+    for b in range(len(n1)):
+        cell = (y < n1[b]) & (d - y >= 0) & (d - y < n2[b])
+        assert ((kinds[b] == checks.S_OWNERS.index("cell")) == cell).all()
+        assert (Sd[b][~cell] == np.float32(NEG)).all()
+        yy, xx = np.nonzero(np.ones((n1[b], n2[b])))
+        assert np.array_equal(Sd[b][yy + xx, yy], S[b][yy, xx])
+    kinds_seen = {checks.S_OWNERS[k] for k in np.unique(kinds)}
+    assert {"cell", "masked"} <= kinds_seen
+    if dtile == 7:
+        # tiles short enough to lie wholly outside a band, and groups of
+        # diagonals on which a warp has no cell
+        assert "neg_group" in kinds_seen
+        if shape not in ("tiny_beside_long", "fewer_rows_than_a_warp"):
+            assert "neg_tile" in kinds_seen
 
 
 @pytest.mark.parametrize("dim", [4, 20, 23, 61, MAX_DIM])
@@ -360,16 +373,16 @@ def test_s_tile_model_notices_a_window_too_short(dim):
     """The shared memory plan_s asks for holds every column a tile reads,
     at each width, and the model is no rubber stamp: with one column less,
     or under a grid that is not the plan's, it raises."""
-    shape = (40, 40, [40], [40])
-    for chains in S_CHAINS:
-        plan = plan_s(1, dim, 40, 40, threads=32, dtile=7, chains=chains)
+    shape = (72, 40, [72], [40])
+    for dtile in (7, 8, 1):
+        plan = plan_s(1, dim, 72, 40, threads=64, dtile=dtile)
         owners, _, _ = checks.s_tile_model(plan, dim, *shape)
         assert (owners == 1).all()
         short = plan._replace(smem_bytes=plan.smem_bytes - 4)
         with pytest.raises(AssertionError, match="column"):
             checks.s_tile_model(short, dim, *shape)
     with pytest.raises(AssertionError, match="grid"):
-        checks.s_tile_model(plan._replace(threads=64), dim, *shape)
+        checks.s_tile_model(plan._replace(threads=128), dim, *shape)
 
 
 def test_s_tile_walk_reproduces_the_plain_plane():
@@ -382,7 +395,7 @@ def test_s_tile_walk_reproduces_the_plain_plane():
     n1, n2 = bt.n1.tolist(), bt.n2.tolist()
     S = [unshear(Sdiag, a, b, k) for k, (a, b) in enumerate(zip(n1, n2))]
     for plan in (plan_s(B, dim, n1max, n2max),
-                 plan_s(B, dim, n1max, n2max, threads=32, dtile=5, chains=2)):
+                 plan_s(B, dim, n1max, n2max, threads=64, dtile=5)):
         owners, _, Sd = checks.s_tile_model(plan, dim, n1max, n2max, n1, n2,
                                             S)
         assert (owners == 1).all()
@@ -408,8 +421,7 @@ def test_wrappers_take_a_plan_on_the_cpu():
     items, bt = _batch(_pairs("chains")[:2])
     args = (bt.g1T, bt.g2T, bt.M, bt.pi, bt.mi, bt.n1, bt.n2)
     B, dim, n1max = bt.g1T.shape
-    plan = plan_s(B, dim, n1max, bt.g2T.shape[2], threads=32, dtile=3,
-                  chains=1)
+    plan = plan_s(B, dim, n1max, bt.g2T.shape[2], threads=64, dtile=3)
     want = exact_s_torch(*args)
     assert torch.equal(exact_s(*args, plan=plan), want)
     t2, v2 = s_prep_torch(bt.g2T, bt.M, bt.pi)
@@ -436,18 +448,16 @@ def test_cuda_s_kernels_match_plain_and_host():
         assert torch.equal(Sk.view(torch.int32),
                            exact_s_torch(*args).view(torch.int32))
         _assert_planes(items, Sk)
-        # K2 under every block size and number of chains, odd tiles
+        # K2 under every block size, odd tiles
         B, dim, n1max = bt.g1T.shape
         t2, v2 = s_prep(bt.g2T, bt.M, bt.pi)
         for threads in S_THREADS:
-            for chains in S_CHAINS:
-                for dtile in (1, 7, 32):
-                    got = s_plane(bt.g1T, t2, v2, bt.pi, bt.mi, bt.n1, bt.n2,
-                                  plan=plan_s(B, dim, n1max, bt.g2T.shape[2],
-                                              threads=threads, dtile=dtile,
-                                              chains=chains))
-                    assert torch.equal(got.view(torch.int32),
-                                       Sk.view(torch.int32))
+            for dtile in (1, 7, 32):
+                got = s_plane(bt.g1T, t2, v2, bt.pi, bt.mi, bt.n1, bt.n2,
+                              plan=plan_s(B, dim, n1max, bt.g2T.shape[2],
+                                          threads=threads, dtile=dtile))
+                assert torch.equal(got.view(torch.int32),
+                                   Sk.view(torch.int32))
     # K1 under every layout the planner can choose, at dim 4, 20, 61 and 64
     for dim in (4, 20, 61, MAX_DIM):
         for n2max in (203, 204):
