@@ -5,10 +5,16 @@
 Builds the port's CUDA kernels from csrc/ with nvcc and its C++ host tier
 with g++, holds each kernel against its plain PyTorch version and the host
 oracles, drives the port's CLI main path (fam100 fixed tree and free tree,
-fam500 one pass) against the goldens and the port's own ``--engine native``
-run on the same host, and times every kernel beside its plain version, its
-roofline bound and, where one PyTorch call computes the same function, that
-call.  Every phase raises on failure; there is no CPU fallback.  One line
+fam500 one pass, fam500 with NW distances) against the goldens and the
+port's own ``--engine native`` run on the same host, and times every kernel
+beside its plain version, its roofline bound and, where one PyTorch call
+computes the same function, that call.  Two paths are read for launches:
+the fixed tree (the DP batch's kernels K1, K2, K3, X1) and the free tree
+``c2_fam100`` (those and the distance kernels D2 ``nw``, D1
+``pair_stats``), each with the counts set to 0 just before it.  Phase
+``walls`` also runs ``--engine auto`` (golden; the levels it sent to the
+card) and ``--engine device`` (whether fam500 equals native, reported);
+``rates`` prints the calibration and the rates engine_policy.py holds.  Every phase raises on failure; there is no CPU fallback.  One line
 per phase, then one JSON line of kernels, the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Long output goes to chiprun_out/.
 
@@ -42,6 +48,7 @@ import contextlib
 import io
 import json
 import os
+import platform
 import re
 import subprocess
 import sys
@@ -51,7 +58,7 @@ import time
 import numpy as np
 import torch
 
-from prographmsa_tpu_torch import _build, checks, native, timings
+from prographmsa_tpu_torch import _build, checks, engine_policy, native, timings
 from prographmsa_tpu_torch import cli as port_cli
 from prographmsa_tpu_torch.align import graph_dp_cuda as gdp
 from prographmsa_tpu_torch.align import scores_cuda
@@ -65,6 +72,17 @@ from prographmsa_tpu_torch.align.scores_cuda import (
     DGROUPS, S_SMEM_MAX, S_THREADS, XVECS, exact_s, plan_s,
     plan_s_prep, s_plane, s_plane_torch, s_prep, s_prep_torch, s_smem_bytes,
     unshear)
+from prographmsa_tpu_torch.alphabet import AA_SPEC
+from prographmsa_tpu_torch.cs_profile import CSProfileLibrary
+from prographmsa_tpu_torch.device import full_float32
+from prographmsa_tpu_torch.distances.align import (GAP_PARAMS, _load_scoring,
+                                                   _seq_codes)
+from prographmsa_tpu_torch.distances.angle import kmer_counts
+from prographmsa_tpu_torch.distances.nw_cuda import nw_counts, nw_torch, plan_nw
+from prographmsa_tpu_torch.distances.prealigned import _pair_stats_batch_host
+from prographmsa_tpu_torch.distances.prealigned_cuda import (pair_stats,
+                                                             pair_stats_torch)
+from prographmsa_tpu_torch.io.fasta import read_fasta
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIX = os.path.join(REPO, "fixtures")
@@ -80,7 +98,13 @@ KERNELS = {
              "prographmsa_tpu/align/graph_dp_pallas.py:276"),
     "chase": ("prographmsa_tpu_torch/csrc/chase.cu",
               "prographmsa_tpu/align/graph_dp_pallas.py:887"),
+    "nw": ("prographmsa_tpu_torch/csrc/nw.cu",
+           "prographmsa_tpu/distances/nw_device.py:38"),
+    "pair_stats": ("prographmsa_tpu_torch/csrc/pair_stats.cu",
+                   "prographmsa_tpu/distances/prealigned_device.py:45"),
 }
+DP_KERNELS = ("s_prep", "s", "fill", "chase")    # the graph-pair DP batch
+DIST_KERNELS = ("nw", "pair_stats")              # the guide-tree distances
 max_err = {k: 0.0 for k in KERNELS}
 detail = []
 CALL_REPS = 200               # calls per call-time reading of K1
@@ -90,6 +114,8 @@ F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores,
 F32_INSTR_S = F32_FLOPS / 2    # the same lanes issuing one operation each:
                                # the kernels' products and sums are separate
                                # roundings, none is fused
+INT32_OPS_S = F32_INSTR_S / 2  # an H100 SM has 64 int32 lanes beside its 128
+                               # float32 lanes (NVIDIA's Hopper white paper)
 # A correctly rounded float32 division: the reciprocal, a Newton step on it
 # (2), the quotient, two residual corrections (2 each).
 DIV_OPS = 8
@@ -101,6 +127,17 @@ S_CELL_OPS = {"den = v1 * v2": 1, "num / den": DIV_OPS,
               "body: three sums": 3, "tail: three sums": 3,
               "body or tail: position, compare, select": 3,
               "NaN or < NEG to NEG: two compares, select": 3}
+# D2's int32 operations per cell, term by term.
+NW_CELL_OPS = {"X: two sums, max": 3, "Y: two sums, max": 3,
+               "diagonal: sum": 1, "W: two max": 2,
+               "backtrack bits: two compares": 2}
+# D1's int32 operations per pair and column, term by term.
+PAIR_COL_OPS = {"both rows ungapped: two tests, and": 3,
+                "both values in range: two compares, and": 3,
+                "histogram index: multiply-add": 1, "histogram: add": 1,
+                "transparent: and, not": 2,
+                "openings: two and-nots against the last state": 4,
+                "last state: two selects": 2}
 
 
 def say(phase, t0, **kv):
@@ -518,7 +555,7 @@ def phase_fam100(dev, tmp):
     if not same_file(out, GOLD + "/t_fam100.fasta"):
         raise AssertionError("t_fam100 differs from the golden")
     check_counters(ctr, "t_fam100")
-    if not all(launches[k] > 0 for k in KERNELS):
+    if not all(launches[k] > 0 for k in DP_KERNELS):
         raise AssertionError("a kernel was not launched: %s" % launches)
     pairs_t = ctr["torch_pairs_total"]
 
@@ -533,12 +570,18 @@ def phase_fam100(dev, tmp):
         if err.split("timings (wall seconds")[0] != f.read():
             raise AssertionError("c2_fam100 stderr differs from the golden")
     check_counters(ctr2, "c2_fam100")
-    if not all(_build.LAUNCHES[k] > 0 for k in KERNELS):
-        raise AssertionError("c2: a kernel was not launched")
+    launches_c2 = dict(_build.LAUNCHES)
+    # the free-tree path: NW (D2) for the first tree, the prealigned
+    # statistics (D1) for each re-tree, the DP batch of every pass
+    if launches_c2["nw"] < 1 or launches_c2["pair_stats"] < 1 or not all(
+            launches_c2[k] > 0 for k in KERNELS):
+        raise AssertionError("c2: a kernel was not launched: %s"
+                             % launches_c2)
     say("fam100", t0, t_fam100="golden", c2_fam100="golden+stderr",
         pairs_per_pass=pairs_t, c2_pairs=ctr2["torch_pairs_total"],
-        fb=0, launches=json.dumps(launches, separators=(",", ":")))
-    return launches, max(levels, key=len)
+        fb=0, launches=json.dumps(launches, separators=(",", ":")),
+        launches_c2=json.dumps(launches_c2, separators=(",", ":")))
+    return launches, launches_c2, max(levels, key=len)
 
 
 def phase_levels(dev, tmp):
@@ -553,11 +596,11 @@ def phase_levels(dev, tmp):
               "torch", "--device", "cuda", "-o",
               os.path.join(tmp, "l500.fasta")], levels)
     launches = dict(_build.LAUNCHES)
-    if not all(launches[k] > 0 for k in KERNELS):
+    if not all(launches[k] > 0 for k in DP_KERNELS):
         raise AssertionError("fam500: a kernel was not launched: %s"
                              % launches)
-    rows, total = [], {k: 0.0 for k in KERNELS}
-    total_dev = {k: 0.0 for k in KERNELS}
+    rows, total = [], {k: 0.0 for k in DP_KERNELS}
+    total_dev = {k: 0.0 for k in DP_KERNELS}
     for lv, items in enumerate(levels):
         preps, bt = pack(items, dev)
         t2, v2 = s_prep(bt.g2T, bt.M, bt.pi)
@@ -570,7 +613,7 @@ def phase_levels(dev, tmp):
             "chase": lambda: chase(fo, *chase_args(bt))}
         ms = {k: time_cuda(fn, 3) for k, fn in runs.items()}
         dms = {k: device_time(fn, 3) for k, fn in runs.items()}
-        for k in KERNELS:
+        for k in DP_KERNELS:
             total[k] += ms[k]
             total_dev[k] += dms[k]
         slots = max(len(p.o1) * len(p.o2) for p in preps)
@@ -583,8 +626,8 @@ def phase_levels(dev, tmp):
     note(*("%2d %4d %5d %5d %4d %d %2d %4d %d  %.4f %.4f %.4f %.4f  "
            "%.4f %.4f %.4f %.4f"
            % (lv, b, n, sl, r, pl.blocks_per_pair, pl.lanes, pl.threads,
-              pl.smem_rings, *(ms[k] for k in KERNELS),
-              *(dms[k] for k in KERNELS))
+              pl.smem_rings, *(ms[k] for k in DP_KERNELS),
+              *(dms[k] for k in DP_KERNELS))
            for lv, b, n, sl, r, pl, ms, dms in rows))
     top = sorted(rows, key=lambda r: -r[6]["fill"])[:3]
     say("levels:fam500", t0, levels=len(rows),
@@ -646,19 +689,40 @@ def cli_wall(args, out, extra=()):
     return wall, p.stderr
 
 
+def timing_of(err, name):
+    """Seconds of phase ``name`` in a --timings report (None if absent)."""
+    m = re.search(r"^\s+%s\s+([0-9.]+) s" % re.escape(name), err, re.M)
+    return float(m.group(1)) if m else None
+
+
+def counters_of(err):
+    return {ln.split()[0]: int(ln.split()[1]) for ln in
+            err.split("counters:")[-1].strip().splitlines()}
+
+
+WALLS = (("t_fam100", ["--fasta", "-t", GOLD + "/tree0_fam100.nwk",
+                       FIX + "/fam100.fasta"]),
+         ("fam500_i0", ["--fasta", "-i", "0", FIX + "/fam500.fasta"]),
+         ("c2_fam100", ["--fasta", "--mldist", "--nwdist",
+                        FIX + "/fam100.fasta"]),
+         ("fam500_nwdist_i0", ["--fasta", "--nwdist", "-i", "0",
+                               FIX + "/fam500.fasta"]))
+
+
 def phase_walls(tmp):
-    """fam100 (fixed tree) and fam500 (-i 0): the port on the card against
-    its own --engine native on this host, as separate processes; then the
+    """The port on the card against its own --engine native on this host,
+    as separate processes, byte for byte: fam100 fixed tree, fam500 -i 0,
+    fam100 free tree (--mldist --nwdist: NW and prealigned on the card) and
+    fam500 --nwdist -i 0, with the distances' share from --timings; then
+    --engine auto on the fixed tree (golden, and the levels it sent to the
+    card), --engine device on fam500 -i 0 (reported, not held), and the
     start-up (imports, CUDA context) of each."""
     t0 = time.perf_counter()
     if not native.available():
         raise AssertionError("the port's native host library did not build: "
                              "--engine native would time the numpy tier")
-    for name, args in (("t_fam100", ["--fasta", "-t",
-                                     GOLD + "/tree0_fam100.nwk",
-                                     FIX + "/fam100.fasta"]),
-                       ("fam500_i0", ["--fasta", "-i", "0",
-                                      FIX + "/fam500.fasta"])):
+    walls = {}
+    for name, args in WALLS:
         o_port = os.path.join(tmp, name + ".port")
         o_nat = os.path.join(tmp, name + ".native")
         w_port, err = cli_wall(args, o_port, ("--engine", "torch",
@@ -672,17 +736,48 @@ def phase_walls(tmp):
         if not same_file(o_port, o_nat):
             raise AssertionError("%s: port differs from --engine native"
                                  % name)
-        ctr = {ln.split()[0]: int(ln.split()[1]) for ln in
-               err.split("counters:")[-1].strip().splitlines()}
+        ctr = counters_of(err)
         check_counters(ctr, name)
         note("== %s port --timings" % name, err,
              "== %s native --timings" % name, err_nat)
+        walls[name] = (w_port, w_nat)
         say(name, t0, port_s="%.3f" % w_port, native_s="%.3f" % w_nat,
             identical=True, pairs_device=ctr["torch_pairs_device"],
             pairs_total=ctr["torch_pairs_total"],
+            distances_s="%s/%s" % (timing_of(err, "distances"),
+                                   timing_of(err_nat, "distances")),
+            nj_s="%s/%s" % (timing_of(err, "nj"), timing_of(err_nat, "nj")),
             **{k: ctr.get("torch_" + k, 0) for k in gdp.FALLBACK_KEYS
                if k.startswith("fb_")})
         t0 = time.perf_counter()
+    # --engine auto: the calibrated gate per level
+    o_auto = os.path.join(tmp, "t_fam100.auto")
+    w_auto, err = cli_wall(WALLS[0][1], o_auto, ("--engine", "auto",
+                                                 "--device", "cuda",
+                                                 "--timings"))
+    if not same_file(o_auto, GOLD + "/t_fam100.fasta"):
+        raise AssertionError("t_fam100 under --engine auto differs from the "
+                             "golden")
+    ctr = counters_of(err)
+    check_counters(ctr, "t_fam100 auto")
+    note("== t_fam100 --engine auto --timings", err)
+    say("auto:t_fam100", t0, port_s="%.3f" % w_auto, golden=True,
+        levels_card=ctr.get("torch_levels_device", 0),
+        levels_host=ctr.get("torch_levels_host", 0),
+        pairs_card=ctr.get("torch_pairs_device", 0))
+    # --engine device: the angle Gram in float32 on the card (NJ may break a
+    # tie otherwise than the host's float64), reported as a fact
+    t0 = time.perf_counter()
+    o_dev = os.path.join(tmp, "fam500_i0.device")
+    w_dev, err = cli_wall(WALLS[1][1], o_dev, ("--engine", "device",
+                                               "--device", "cuda",
+                                               "--timings"))
+    note("== fam500 -i 0 --engine device --timings", err)
+    say("device:fam500_i0", t0, port_s="%.3f" % w_dev,
+        equals_native=same_file(o_dev, os.path.join(tmp,
+                                                    "fam500_i0.native")),
+        distances_s=timing_of(err, "distances"))
+    t0 = time.perf_counter()
     startup = {}
     for name, code in (("port_import_and_cuda_init_s",
                         "import torch, prographmsa_tpu_torch.cli; "
@@ -774,8 +869,8 @@ def bounds(preps, steps, Lm):
     steps its walks took.  No counted operation is a fused multiply-add, so
     the rate is F32_INSTR_S.  The old bound took F32_FLOPS and 12
     operations for a cell of K2 beyond num."""
-    by = {k: 0.0 for k in KERNELS}
-    op = {k: 0.0 for k in KERNELS}
+    by = {k: 0.0 for k in DP_KERNELS}
+    op = {k: 0.0 for k in DP_KERNELS}
     op_s_old = 0.0
     s_cell = sum(S_CELL_OPS.values())
     for k, p in enumerate(preps):
@@ -798,7 +893,7 @@ def bounds(preps, steps, Lm):
                             + 3 * p.R * nl1 * nl2)
         op["chase"] += 12 * nl1 * nl2 + 10 * int(steps[k])
     out = {}
-    for k in KERNELS:
+    for k in DP_KERNELS:
         tb, to = by[k] / HBM_BYTES_S * 1e3, op[k] / F32_INSTR_S * 1e3
         old = max(tb, (op_s_old if k == "s" else op[k]) / F32_FLOPS * 1e3)
         out[k] = (max(tb, to), "bytes" if tb >= to else "operations", old)
@@ -964,6 +1059,309 @@ def phase_times(dev, largest, root):
     return res, floors
 
 
+def fasta_codes(path):
+    """NW codes of a FASTA's sequences in name order, the start Met
+    stripped as the CLI strips it: (codes [n, L] uint8, lengths [n])."""
+    seqs, _ = read_fasta(path)
+    met = AA_SPEC.encode("M")[0]
+    codes = []
+    for name in sorted(seqs):
+        enc = AA_SPEC.encode(seqs[name])
+        if len(enc) and enc[0] == met:
+            enc = enc[1:]
+        codes.append(_seq_codes(AA_SPEC, enc))
+    lens = np.array([len(c) for c in codes], np.int32)
+    cm = np.zeros((len(codes), lens.max()), np.uint8)
+    for i, c in enumerate(codes):
+        cm[i, :len(c)] = c
+    return cm, lens
+
+
+def all_pairs(cm, lens):
+    pi, pj = np.triu_indices(len(lens), 1)
+    return cm[pi], cm[pj], lens[pi], lens[pj]
+
+
+def nw_bound(l1, l2, T, dim, code_bytes):
+    """(bound_ms, bound_by) of D2 on these pairs: each pair's codes, the
+    lengths and the table in once, counts and gaps out once; NW_CELL_OPS
+    int32 operations a cell."""
+    B = len(l1)
+    by = (code_bytes * int(l1.sum() + l2.sum()) + 8 * B + 4 * T * T
+          + 4 * B * dim * dim + 4 * B)
+    op = float((l1.astype(np.int64) * l2).sum()) * sum(NW_CELL_OPS.values())
+    tb, to = by / HBM_BYTES_S * 1e3, op / INT32_OPS_S * 1e3
+    return max(tb, to), "bytes" if tb >= to else "operations"
+
+
+def nw_check(name, arrs, go, ge, dim, dev, plain=True, host=True, reps=0):
+    """D2 against nw_torch (``plain``) and native.nw_counts_native
+    (``host``), bit for bit; with ``reps``, its call and device times (and
+    the plain version's) and its bound."""
+    s1, s2, l1, l2, sc = arrs
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrs]
+    c, g = nw_counts(*args, go, ge, dim)
+    torch.cuda.synchronize()
+    if host:
+        cn, gn = native.nw_counts_native(s1, s2, l1, l2, sc, go, ge, dim)
+        diff("nw", c.long().cpu(), torch.from_numpy(cn).long(),
+             "%s counts vs native" % name)
+        diff("nw", g.long().cpu(), torch.from_numpy(gn).long(),
+             "%s gaps vs native" % name)
+    out = {"pairs": len(l1), "cells": int((l1.astype(np.int64) * l2).sum()),
+           "plan": plan_nw(len(l1), sc.shape[0], s1.shape[1], s2.shape[1],
+                           dim, s1.itemsize)}
+    if plain:
+        fn = lambda: nw_torch(*args, go, ge, dim)
+        if reps:
+            (p0, p1), (ct, gt) = time_plain(fn, 1)
+            out["plain_ms"] = min(p0, p1)
+        else:
+            ct, gt = fn()
+        diff("nw", c, ct, name + " counts")
+        diff("nw", g, gt, name + " gaps")
+    if reps:
+        kern = lambda: nw_counts(*args, go, ge, dim)
+        out["ms"] = min(time_cuda(kern, reps) for _ in range(2))
+        out["device_ms"] = min(device_time(kern, reps) for _ in range(2))
+        out["bound_ms"], out["bound_by"] = nw_bound(l1, l2, sc.shape[0], dim,
+                                                    s1.itemsize)
+    return out
+
+
+def phase_nw(dev, tmp):
+    """D2 against nw_torch and the native tier on fam100's 4,950 pairs, 8
+    random pairs of 2000 x 1980, and small batches under the codon (62
+    codes, dim 61) and DNA (int32 codes) tables and a random asymmetric
+    table with pairs of unequal and of zero length; timed at the first two
+    and on fam500's 124,750 pairs (against the native tier on the first
+    4,096), where the card's rate and the host's are measured."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(23)
+    aa = _load_scoring("aa")
+    go, ge = GAP_PARAMS["aa"]
+    res = {}
+    cm100, lens100 = fasta_codes(FIX + "/fam100.fasta")
+    res["fam100"] = nw_check("fam100", (*all_pairs(cm100, lens100), aa), go,
+                             ge, 20, dev, reps=20)
+    s1 = rng.integers(0, 21, (8, 2000)).astype(np.uint8)
+    s2 = rng.integers(0, 21, (8, 1980)).astype(np.uint8)
+    res["8x2000x1980"] = nw_check(
+        "8x2000x1980", (s1, s2, np.full(8, 2000, np.int32),
+                        np.full(8, 1980, np.int32), aa), go, ge, 20, dev,
+        reps=3)
+    asym = rng.integers(-9, 12, (21, 21)).astype(np.int32)
+    l1 = rng.integers(0, 90, 96).astype(np.int32)
+    l2 = rng.integers(0, 90, 96).astype(np.int32)
+    l1[0] = l2[1] = l1[2] = l2[2] = 0
+    nw_check("asymmetric", (rng.integers(0, 21, (96, 90)).astype(np.uint8),
+                            rng.integers(0, 21, (96, 70)).astype(np.uint8),
+                            l1, np.minimum(l2, 70), asym), go, ge, 20, dev)
+    nw_check("codon", (rng.integers(0, 62, (40, 150)).astype(np.uint8),
+                       rng.integers(0, 62, (40, 140)).astype(np.uint8),
+                       np.full(40, 150, np.int32),
+                       rng.integers(100, 141, 40).astype(np.int32),
+                       _load_scoring("codon")), *GAP_PARAMS["codon"], 61, dev)
+    nw_check("dna", (rng.integers(0, 5, (40, 160)).astype(np.int32),
+                     rng.integers(0, 5, (40, 161)).astype(np.int32),
+                     rng.integers(120, 161, 40).astype(np.int32),
+                     np.full(40, 161, np.int32), _load_scoring("dna")),
+             *GAP_PARAMS["dna"], 4, dev)
+    # fam500: the card's rate on all pairs, the native tier on a slice
+    arrs = (*all_pairs(*fasta_codes(FIX + "/fam500.fasta")), aa)
+    nw_check("fam500[:4096]", tuple(a[:4096] for a in arrs[:4]) + (aa,), go,
+             ge, 20, dev, plain=False)
+    res["fam500"] = nw_check("fam500", arrs, go, ge, 20, dev, plain=False,
+                             host=False, reps=2)
+    # the native tier's rate on fam100's pairs, all threads
+    a100 = (*all_pairs(cm100, lens100), aa)
+    t1 = time.perf_counter()
+    native.nw_counts_native(*a100, go, ge, 20)
+    nat_s = time.perf_counter() - t1
+    rates = {"NW_DEVICE_RATE": res["fam500"]["cells"]
+             / (res["fam500"]["device_ms"] / 1e3),
+             "NW_NATIVE_RATE": res["fam100"]["cells"] / nat_s
+             / native.n_threads()}
+    cj = lambda d: json.dumps(d, separators=(",", ":"))
+    say("nw", t0, vs_plain="bit-identical", vs_native="bit-identical",
+        shapes="fam100,8x2000x1980,asymmetric,codon,dna,fam500",
+        native_threads=native.n_threads(), native_fam100_s="%.4f" % nat_s,
+        **{k: cj({kk: (round(v, 5) if isinstance(v, float) else
+                       (v._asdict() if hasattr(v, "_asdict") else v))
+                  for kk, v in r.items()}) for k, r in res.items()},
+        **{k: "%.4g" % v for k, v in rates.items()})
+    return res, rates
+
+
+def msa_stats_inputs(path):
+    """An alignment's values [N, L] int32, gap mask [N, L] uint8 and all
+    its pairs, rows in name order."""
+    seqs, _ = read_fasta(path)
+    rows = [np.frombuffer(seqs[n].encode(), np.uint8).astype(np.int16)
+            for n in sorted(seqs)]
+    vals = np.stack([AA_SPEC.values(r) for r in rows]).astype(np.int32)
+    gapm = np.stack([AA_SPEC.is_gap(r) for r in rows]).astype(np.uint8)
+    pi, pj = np.triu_indices(len(rows), 1)
+    return vals, gapm, pi.astype(np.int32), pj.astype(np.int32)
+
+
+def masked_onehot(vals, gapm, rows, cb, chunk=8192):
+    """float32 [P, L, cb]: one-hot of the rows' values in [0, cb), zero
+    where gapped (the library call's operand, built in chunks)."""
+    P, L = rows.shape[0], vals.shape[1]
+    out = torch.empty((P, L, cb), dtype=torch.float32, device=vals.device)
+    for s in range(0, P, chunk):
+        r = rows[s:s + chunk].long()
+        v, g = vals[r], gapm[r].bool()
+        ok = ~g & (v >= 0) & (v < cb)
+        out[s:s + chunk] = torch.nn.functional.one_hot(
+            torch.where(ok, v, cb).long(), cb + 1)[..., :cb].float()
+    return out
+
+
+def pair_stats_bound(N, L, P, cb):
+    by = 5 * N * L + 8 * P + 4 * P * cb * cb + 4 * P
+    op = float(P) * L * sum(PAIR_COL_OPS.values())
+    tb, to = by / HBM_BYTES_S * 1e3, op / INT32_OPS_S * 1e3
+    return max(tb, to), "bytes" if tb >= to else "operations"
+
+
+def phase_pair_stats(dev, msas):
+    """D1 against pair_stats_torch and the host batch path
+    (_pair_stats_batch_host), bit for bit, on every pair of each alignment,
+    timed beside one masked one-hot torch.bmm (the counts only)."""
+    t0 = time.perf_counter()
+    cb = 20
+    res = {}
+    for name, path in msas:
+        vals, gapm, pi, pj = msa_stats_inputs(path)
+        N, L = vals.shape
+        P = len(pi)
+        args = [torch.from_numpy(a).to(dev) for a in (vals, gapm, pi, pj)]
+        c, g = pair_stats(*args, cb)
+        torch.cuda.synchronize()
+        (p0, p1), (ct, gt) = time_plain(lambda: pair_stats_torch(*args, cb),
+                                        1)
+        diff("pair_stats", c, ct, name + " counts")
+        diff("pair_stats", g, gt, name + " gaps")
+        t1 = time.perf_counter()
+        ch, gh = _pair_stats_batch_host(vals.astype(np.int64),
+                                        gapm.astype(bool), pi.astype(np.intp),
+                                        pj.astype(np.intp), cb, cb)
+        host_s = time.perf_counter() - t1
+        diff("pair_stats", c.long().cpu(), torch.from_numpy(ch).long(),
+             name + " counts vs host")
+        diff("pair_stats", g.long().cpu(), torch.from_numpy(gh).long(),
+             name + " gaps vs host")
+        kern = lambda: pair_stats(*args, cb)
+        r = {"rows": N, "columns": L, "pairs": P, "host_s": host_s,
+             "plain_ms": min(p0, p1),
+             "ms": min(time_cuda(kern, 20) for _ in range(2)),
+             "device_ms": min(device_time(kern, 20) for _ in range(2))}
+        r["bound_ms"], r["bound_by"] = pair_stats_bound(N, L, P, cb)
+        oh1 = masked_onehot(args[0], args[1], args[2], cb).transpose(1, 2)
+        oh2 = masked_onehot(args[0], args[1], args[3], cb)
+        lib = lambda: torch.bmm(oh1, oh2)
+        if not torch.equal(lib().to(torch.int32), c):
+            raise AssertionError("%s: the masked one-hot bmm differs from "
+                                 "D1's counts" % name)
+        r["library_ms"] = min(time_cuda(lib, 5) for _ in range(2))
+        r["library_device_ms"] = min(device_time(lib, 5) for _ in range(2))
+        del oh1, oh2
+        res[name] = r
+    big = res[msas[-1][0]]
+    work = big["pairs"] * big["columns"]
+    rates = {"PAIR_STATS_DEVICE_RATE": work / (big["device_ms"] / 1e3),
+             "PAIR_STATS_HOST_RATE": work / big["host_s"]}
+    cj = lambda d: json.dumps({k: round(v, 5) if isinstance(v, float) else v
+                               for k, v in d.items()}, separators=(",", ":"))
+    say("pair_stats", t0, vs_plain="bit-identical", vs_host="bit-identical",
+        **{k: cj(r) for k, r in res.items()},
+        **{k: "%.4g" % v for k, v in rates.items()})
+    return res, rates
+
+
+def phase_angle(dev):
+    """The float32 products of ``--engine device``: the angle distances'
+    k-mer Gram on the card (TF32 off) against numpy's int64 Gram on fam500,
+    identical; the CS window scores and mix on the card against the host's
+    float64 path on fam6 with cs16.lib, within 1e-5."""
+    t0 = time.perf_counter()
+    seqs, _ = read_fasta(FIX + "/fam500.fasta")
+    enc = {n: AA_SPEC.encode(s) for n, s in seqs.items()}
+    counts, _ = kmer_counts(AA_SPEC, enc, sorted(enc), AA_SPEC.kmer_k)
+    want = counts.astype(np.int64) @ counts.astype(np.int64).T
+    full_float32()
+    C = torch.from_numpy(counts.astype(np.float32)).to(dev)
+    G = torch.matmul(C, C.T)
+    if not np.array_equal(G.cpu().numpy().astype(np.int64), want):
+        raise AssertionError("fam500: the card's k-mer Gram differs from "
+                             "numpy's int64 Gram")
+    ms = min(time_cuda(lambda: torch.matmul(C, C.T), 20) for _ in range(2))
+    seqs, _ = read_fasta(FIX + "/fam6.fasta")
+    items = [(AA_SPEC.encode(s), checks.model(0.3)) for s in seqs.values()]
+    host, card = (CSProfileLibrary(FIX + "/cs16.lib") for _ in range(2))
+    host.prime_profiles(items)
+    card.prime_profiles(items, "device", dev)
+    cs_err = max(float(np.max(np.abs(card._cache[card._key(*it)]
+                                     - host._cache[host._key(*it)])))
+                 for it in items)
+    if not cs_err < 1e-5:
+        raise AssertionError("fam6: the card's CS mix is %g from the host's"
+                             % cs_err)
+    say("angle", t0, shape="%dx%d" % counts.shape, vs_int64="identical",
+        gram_ms="%.4f" % ms, max_entry=int(want.max()),
+        cs_mix_fam6_max_abs_vs_host="%.3g" % cs_err)
+
+
+def phase_rates(largest, native_ms, rates):
+    """The calibration auto probes and the rates engine_policy.py holds,
+    measured in this run, with the host's CPU: ``native_ms`` is the native
+    tier's alignment of fam100's largest level, one thread."""
+    t0 = time.perf_counter()
+    cells = sum(it[0].size * it[1].size for it in largest)
+    rates["NATIVE_CELLS_PER_SEC"] = cells / (native_ms / 1e3)
+    engine_policy.calibration.cache_clear()
+    calib = engine_policy.calibration()
+    cpu = {"Architecture": platform.machine()}
+    with contextlib.suppress(OSError, subprocess.SubprocessError):
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=30).stdout
+        note("== lscpu", out)
+        for ln in out.splitlines():
+            key = ln.split(":", 1)[0].strip()
+            if key in ("Architecture", "Vendor ID", "Model name",
+                       "CPU family", "Model", "Stepping",
+                       "Hypervisor vendor"):
+                cpu[key] = ln.split(":", 1)[1].strip()
+    say("rates", t0, cpu=json.dumps(cpu, separators=(",", ":")),
+        cores=len(os.sched_getaffinity(0)),
+        native_threads=native.n_threads(),
+        calibration=json.dumps(calib, separators=(",", ":")),
+        measured=json.dumps({k: float("%.4g" % v) for k, v in rates.items()},
+                            separators=(",", ":")),
+        engine_policy=json.dumps({k: getattr(engine_policy, k)
+                                  for k in rates}, separators=(",", ":")))
+    return rates
+
+
+def dist_row(k, launches, res, main_shape):
+    """The kernels line's row of a distance kernel: the main shape's
+    numbers bare, every other shape's with its name as suffix."""
+    src, repl = KERNELS[k]
+    row = {"name": k, "route": "cuda", "source": src, "replaces": repl,
+           "launches": launches[k], "max_abs_err": max_err[k]}
+    for shape, r in res.items():
+        sfx = "" if shape == main_shape else "_" + shape
+        for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "library_device_ms"):
+            if key in r:
+                row[key + sfx] = r[key]
+        if main_shape == shape:
+            row.setdefault("library_ms", None)
+    return row
+
+
 def main():
     name, smi = phase_device()
     dev = torch.device("cuda")
@@ -972,10 +1370,17 @@ def main():
     phase_fill_chase(dev)
     os.makedirs(OUT, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=OUT) as tmp:
-        launches, largest = phase_fam100(dev, tmp)
+        launches, launches_c2, largest = phase_fam100(dev, tmp)
         phase_walls(tmp)
         launches500, root, sum500, sum500_dev = phase_levels(dev, tmp)
+        res_nw, rates = phase_nw(dev, tmp)
+        res_ps, rates_ps = phase_pair_stats(dev, (
+            ("c2_fam100", GOLD + "/c2_fam100.fasta"),
+            ("fam500_i0", os.path.join(tmp, "l500.fasta"))))
+    phase_angle(dev)
     res, floors = phase_times(dev, largest, root)
+    phase_rates(largest, res["fam100_level"]["native_ms"],
+                {**rates, **rates_ps})
     stray = [m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "prographmsa_tpu" or m.startswith("prographmsa_tpu.")]
@@ -985,9 +1390,11 @@ def main():
         f.write("\n".join(detail) + "\n")
     kern = []
     main_shape = "fam100_level"
-    for k, (src, repl) in KERNELS.items():
+    for k in DP_KERNELS:
+        src, repl = KERNELS[k]
         row = {"name": k, "route": "cuda", "source": src, "replaces": repl,
-               "launches": launches[k], "launches_fam500": launches500[k],
+               "launches": launches[k], "launches_c2_fam100": launches_c2[k],
+               "launches_fam500": launches500[k],
                "max_abs_err": max_err[k],
                "ms_fam500_levels_sum": sum500[k],
                "device_ms_fam500_levels_sum": sum500_dev[k],
@@ -1016,6 +1423,9 @@ def main():
                     row["exact_s_%s_ms%s" % (name_, sfx)] = call
                     row["exact_s_%s_device_ms%s" % (name_, sfx)] = device
         kern.append(row)
+    # the distance kernels: launches from the free-tree run (c2_fam100)
+    kern.append(dist_row("nw", launches_c2, res_nw, "fam100"))
+    kern.append(dist_row("pair_stats", launches_c2, res_ps, "c2_fam100"))
     print(json.dumps({"kernels": kern}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

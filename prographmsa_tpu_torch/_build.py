@@ -26,13 +26,13 @@ import time
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_DIR, "csrc")
-SOURCES = ("scores.cu", "fill.cu", "chase.cu")
+SOURCES = ("scores.cu", "fill.cu", "chase.cu", "nw.cu", "pair_stats.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
-KERNELS = ("s_prep", "s", "fill", "chase")
+KERNELS = ("s_prep", "s", "fill", "chase", "nw", "pair_stats")
 LAUNCHES = {k: 0 for k in KERNELS}
 
 _lock = threading.Lock()
@@ -123,9 +123,11 @@ def lib() -> ctypes.CDLL:
         L.pgm_fill_max_clusters.restype = i
         L.pgm_chase.argtypes = [p] * 14 + [i] * 10 + [p, p, p]
         L.pgm_chase_latency.argtypes = [p, i, i, i, p, p]
+        L.pgm_nw.argtypes = [p] * 5 + [i] * 10 + [p] * 4
+        L.pgm_pair_stats.argtypes = [p] * 4 + [i] * 4 + [p] * 3
         for fn in (L.pgm_s_prep, L.pgm_s, L.pgm_exact_s, L.pgm_q_check,
                    L.pgm_empty, L.pgm_fill, L.pgm_chase,
-                   L.pgm_chase_latency):
+                   L.pgm_chase_latency, L.pgm_nw, L.pgm_pair_stats):
             fn.restype = ctypes.c_int
         L.pgm_error_string.argtypes = [i]
         L.pgm_error_string.restype = ctypes.c_char_p

@@ -436,3 +436,90 @@ def s_tile_model(plan, dim: int, n1max: int, n2max: int, n1, n2, S=None):
                               None if S is None else S[b][yy[cell], x[cell]])
                         store(b, dd[st & ~cell], yy[st & ~cell], 2)
     return owners, kinds, Sd
+
+
+def pair_gaps_warp_model(g1, g2) -> int:
+    """The gap openings of one pair of alignment rows (bool gap masks) as
+    kernel D1 counts them: 32 columns a step, one lane a column, three
+    ballots (non-transparent, gapped in row 1, gapped in row 2) and the
+    carry of the last non-transparent column's gap sides."""
+    L = len(g1)
+    lanes = np.arange(32)
+    last1 = last2 = False
+    opens = 0
+    for c0 in range(0, L, 32):
+        c = c0 + lanes
+        inr = c < L
+        a = np.where(inr, g1[np.minimum(c, L - 1)], True)
+        b = np.where(inr, g2[np.minimum(c, L - 1)], True)
+        nt = ~(a & b)
+        m1, m2 = nt & a, nt & b
+        p1 = np.full(32, last1)
+        p2 = np.full(32, last2)
+        for lane in range(32):
+            below = np.flatnonzero(nt[:lane])
+            if below.size:
+                p1[lane], p2[lane] = m1[below[-1]], m2[below[-1]]
+        opens += int((nt & a & ~p1).sum() + (nt & b & ~p2).sum())
+        if nt.any():
+            j = np.flatnonzero(nt)[-1]
+            last1, last2 = bool(m1[j]), bool(m2[j])
+    return opens
+
+
+def nw_warp_model(s1, s2, scoring, go: int, ge: int, dim: int):
+    """One pair of kernel D2 as the warp runs it: strips of 32 rows, lane l
+    at step s on cell (y0 + l, s - l) from x = 1 on (its registers start as
+    the cell (y, 0)), the row above from lane l - 1 of the step before (lane
+    0 from the row buffer, which lane 31 refills 31 steps behind), two bits
+    a cell, then the walk back over the bits.  Returns (counts [dim, dim],
+    gaps)."""
+    MINF = -10000
+    n1, n2 = len(s1), len(s2)
+    rowW = np.array([0] + [go + (x - 1) * ge for x in range(1, n1 + 1)])
+    rowY = np.full(n1 + 1, MINF)
+    bits = np.zeros((n2, max(n1, 1)), np.int64)
+    lanes = np.arange(32)
+    for y0 in range(1, n2 + 1, 32):
+        y = y0 + lanes
+        row = y <= n2
+        W = go + (y - 1) * ge
+        X = np.full(32, MINF)
+        Y = W.copy()
+        diagW = np.where(y == 1, 0, go + (y - 2) * ge)
+        for s in range(1, n1 + 32):
+            x = s - lanes
+            upW = np.concatenate([[0], W[:-1]])     # lane - 1, step before
+            upY = np.concatenate([[0], Y[:-1]])
+            xb = min(max(x[0], 0), n1)
+            upW[0], upY[0] = rowW[xb], rowY[xb]
+            live = row & (x >= 1) & (x <= n1)
+            for l in np.flatnonzero(live):
+                xl, yl = x[l], y[l]
+                Xn = max(X[l] + ge, W[l] + go)
+                Yn = max(upY[l] + ge, upW[l] + go)
+                d = diagW[l] + scoring[s2[yl - 1], s1[xl - 1]]
+                Wn = max(d, Xn, Yn)
+                bits[yl - 1, xl - 1] = int(Wn == d) | (int(Wn == Xn) << 1)
+                W[l], X[l], Y[l] = Wn, Xn, Yn
+            if live[31]:
+                rowW[x[31]], rowY[x[31]] = W[31], Y[31]
+            diagW = np.where((x >= 0) & (x <= n1), upW, diagW)
+    counts = np.zeros((dim, dim), np.int64)
+    y, x, gaps, go1, go2 = n2, n1, 0, False, False
+    while y > 0 and x > 0:
+        b = bits[y - 1, x - 1]
+        if b & 1:
+            if s1[x - 1] < dim and s2[y - 1] < dim:
+                counts[s1[x - 1], s2[y - 1]] += 1
+            go1 = go2 = False
+            x, y = x - 1, y - 1
+        elif b & 2:
+            gaps += not go1
+            go1, go2 = True, False
+            x -= 1
+        else:
+            gaps += not go2
+            go1, go2 = False, True
+            y -= 1
+    return counts, gaps

@@ -3,14 +3,19 @@ the reference binary (main.cpp:32-483), as prographmsa_tpu/cli.py has them,
 with the graph-pair DP of every progressive pass on the port's device batch.
 
   python -m prographmsa_tpu_torch.cli [reference flags] \\
-      [--engine torch|native] [--device cuda|cpu] sequences.fasta
+      [--engine torch|device|auto|native] [--device cuda|cpu] sequences.fasta
 
-``--engine torch`` (default) runs each guide-tree level's DP batch on
-``--device`` (default ``cuda``, which must exist: there is no silent CPU
-run; ``cpu`` runs the kernels' plain PyTorch versions).  ``--engine native``
-keeps the DP on the port's own C++ host tier.  The guide-tree distances
-run on the host in both.  ``-r`` and ``--early_refinement`` are not ported
-yet and exit with an error.
+``--engine`` routes each stage (the table in engine_policy.py):
+``torch`` (default) runs every level's DP batch, the NW distances
+(``--nwdist``) and the prealigned statistics of each re-tree on
+``--device``, and keeps the float64 stages (angle Gram, CS mix) on the
+host; ``device`` also runs those two on the card in float32; ``auto``
+chooses per level and per stage from a probed calibration of the card;
+``native`` keeps everything on the port's C++ host tier.  ``--device``
+defaults to ``cuda``, which must exist: there is no silent CPU run
+(``cpu`` runs the kernels' plain PyTorch versions; ``auto`` calibrates
+the card and needs ``cuda``).  ``-r`` and ``--early_refinement`` are not
+ported yet and exit with an error.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import numpy as np
 from . import alphabet as al
 from . import timings
 from .config import Options
-from .engine_policy import ENGINES, use_torch_dp
+from .engine_policy import ENGINES, engine_device
 from .errors import ParityError
 from .io.fasta import FastaError, read_fasta, write_fasta
 from .io.newick import parse_newick
@@ -92,12 +97,14 @@ def build_parser() -> argparse.ArgumentParser:
     a("--timings", action="store_true", dest="timings")
     # extension (not a reference flag): phase checkpoint/resume directory
     a("--checkpoint_dir", default="")
-    # extensions (not reference flags): DP engine and its torch device
+    # extensions (not reference flags): engine policy and its torch device
     a("--engine", choices=ENGINES, default="torch",
-      help="DP engine: torch = the port's device batch on --device; "
+      help="torch = DP batch, NW and prealigned statistics on --device, "
+      "float64 stages on the host; device = also the angle Gram and CS mix "
+      "in float32; auto = per level and stage from a probed calibration; "
       "native = the C++ host tier")
     a("--device", choices=("cuda", "cpu"), default="cuda",
-      help="torch device of the DP batch (cuda must exist)")
+      help="torch device of the engine's card stages (cuda must exist)")
     return p
 
 
@@ -141,10 +148,11 @@ def options_from_args(args) -> Options:
     return opt.with_codon_rescaling(**defaults)
 
 
-def do_align(seqs: Dict[str, str], options, device):
+def do_align(seqs: Dict[str, str], options, device, engine: str = "torch"):
     """doAlign<ALPHABET> (main.cpp:324-483) over the port's level driver.
-    ``options`` carries ``engine="native"`` for the host layers; ``device``
-    is the DP batch's torch device, or None for the host DP.
+    ``options`` carries ``engine="native"`` for the host layers; ``engine``
+    is the port's engine policy and ``device`` the torch device of its card
+    stages, or None with ``native``.
 
     Returns (aligned {name: str}, all_trees [PhyTree])."""
     from .engine.level_driver import progressive_alignment_batched
@@ -208,7 +216,8 @@ def do_align(seqs: Dict[str, str], options, device):
             with open(options.tree_file) as fh:
                 tree = parse_newick(fh.read())
         else:
-            tree = tree_nj(spec, seqs2, False, factory, options, topo)
+            tree = tree_nj(spec, seqs2, False, factory, options, topo,
+                           device, engine)
         all_trees = [tree.copy()]
         old_aligned = None
         start_i = 0
@@ -230,10 +239,10 @@ def do_align(seqs: Dict[str, str], options, device):
                         _walk(node[ci])
 
                 _walk(tr)
-                csprofile.prime_profiles(leaves)
+                csprofile.prime_profiles(leaves, engine, device)
         return progressive_alignment_batched(spec, seqs2, tr, reps,
                                              csprofile, factory, options,
-                                             device)
+                                             device, engine)
 
     result = None
     for i in range(start_i, options.iters):
@@ -246,7 +255,7 @@ def do_align(seqs: Dict[str, str], options, device):
         if i > 0 and _aligned_equal(result.aligned_sequences, old_aligned):
             break
         tree = tree_nj(spec, result.aligned_sequences, True, factory,
-                       options, topo)
+                       options, topo, device, engine)
         all_trees.append(tree.copy())
         old_aligned = result.aligned_sequences
         if ckpt is not None:
@@ -298,23 +307,19 @@ def main(argv=None) -> int:
                   "--early_refinement on the device DP)" % flag,
                   file=sys.stderr)
             return 2
-    port_options = options_from_args(args)
-    options = port_options.replace(engine="native")
-    device = None
-    if use_torch_dp(port_options):
-        from .device import resolve_device
-        try:
-            device = resolve_device(args.device)
-        except RuntimeError as e:
-            print("error: %s" % e, file=sys.stderr)
-            return 2
+    options = options_from_args(args).replace(engine="native")
+    try:
+        device = engine_device(args.engine, args.device)
+    except RuntimeError as e:
+        print("error: %s" % e, file=sys.stderr)
+        return 2
 
     if options.timings_flag:
         timings.enable(True)
 
     try:
         seqs, input_order = read_fasta(options.sequence_file)
-        aligned, all_trees = do_align(seqs, options, device)
+        aligned, all_trees = do_align(seqs, options, device, args.engine)
         if options.timings_flag:
             timings.report(sys.stderr)
 

@@ -146,15 +146,18 @@ class CSProfileLibrary:
                 break
 
     # ------------------------------------------------------------------
-    def prime_profiles(self, items) -> None:
+    def prime_profiles(self, items, engine: str = "native",
+                       device=None) -> None:
         """Batch-compute the profiles of many (seq, model) leaves in ONE
         pass — one windowed-gather sweep and one [ΣL, K] @ [K, 20] mixing
         GEMM instead of per-leaf passes (the reference recomputes each leaf
         separately, CSProfile.cpp:175) — and cache them for create_profile.
 
-        Host float64 only: CS profiles feed the S matrices whose rounding
-        decides alignment paths.  The f32 device mix of the JAX package is
-        still to be ported.
+        Host float64 by default: CS profiles feed the S matrices whose
+        rounding decides alignment paths.  Under the ``device`` engine
+        (engine_policy.use_device_cs) the window scores and the mix run on
+        ``device`` in float32 (``_pk_mix_device``); the admixture stays
+        float64 on the host.
 
         Leaf windows never cross leaves: each sequence is padded with
         ``center`` sentinel residues on both sides, so position windows of
@@ -186,18 +189,43 @@ class CSProfileLibrary:
         tseq_all = big[idx]
 
         win = big[idx[:, None] + np.arange(-center, center + 1)[None, :]]
-        lp = self.lprofiles.transpose(1, 2, 0)      # [ncols, 21, K]
-        pk = np.zeros((len(idx), self.nprof))
-        for j in range(self.ncols):
-            pk += lp[j][win[:, j]]
-        pk += self.priors[None, :]
-        mix = np.exp(pk) @ self.profiles[:, center, :]  # [ΣL, 20]
+        from .engine_policy import use_device_cs
+        if use_device_cs(engine):
+            mix = self._pk_mix_device(win, center, device)
+        else:
+            lp = self.lprofiles.transpose(1, 2, 0)      # [ncols, 21, K]
+            pk = np.zeros((len(idx), self.nprof))
+            for j in range(self.ncols):
+                pk += lp[j][win[:, j]]
+            pk += self.priors[None, :]
+            mix = np.exp(pk) @ self.profiles[:, center, :]  # [ΣL, 20]
 
         pos = 0
         for (seq, model), n in zip(todo, lens):
             self._cache[self._key(seq, model)] = self._finalize(
                 mix[pos:pos + n], tseq_all[pos:pos + n], model)
             pos += n
+
+    def _pk_mix_device(self, win, center, device):
+        """Window scores and mix on ``device`` (CSProfile.cpp:190-203 as two
+        float32 products, TF32 off): pk = onehot(win) contracted with the
+        log library over (column, residue), plus the priors; mix = exp(pk)
+        @ the centre profiles.  Returns float64 [ΣL, 20]."""
+        import torch
+
+        from .device import full_float32
+
+        full_float32()
+        f32 = torch.float32
+        lp = torch.as_tensor(self.lprofiles, dtype=f32, device=device)
+        oh = torch.nn.functional.one_hot(
+            torch.as_tensor(win, device=device), DIM + 1).to(f32)
+        pk = torch.matmul(oh.reshape(len(win), self.ncols * (DIM + 1)),
+                          lp.reshape(self.nprof, -1).T)
+        pk = pk + torch.as_tensor(self.priors, dtype=f32, device=device)
+        mix = torch.matmul(torch.exp(pk), torch.as_tensor(
+            self.profiles[:, center, :], dtype=f32, device=device))
+        return mix.cpu().numpy().astype(np.float64)
 
     def _key(self, seq, model):
         return (seq.tobytes(), float(model.distance),

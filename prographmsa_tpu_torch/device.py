@@ -28,3 +28,16 @@ def on_cuda(*tensors) -> bool:
         return False
     raise ValueError("tensors on mixed or unsupported devices: %s"
                      % sorted(types))
+
+
+def full_float32() -> None:
+    """Set, and assert, that float32 products on the card round in full
+    float32: TF32 off for matrix products and convolutions, matmul
+    precision "highest"."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError("float32 products on the card are not in full "
+                           "float32")

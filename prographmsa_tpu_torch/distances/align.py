@@ -4,10 +4,12 @@ Re-derivation of DistanceFactoryAlign.{h,cpp}: global affine-gap alignment
 with hardcoded BLOSUM64-style integer matrices, then ML distance from the
 match counts.
 
-The port's copy of prographmsa_tpu/distances/align.py with the host path
-only: the batched fill + backtrack is the threaded native kernel
-(``native.nw_counts_native``, exact integers).  The device program
-(distances/nw_device.py there) is still to be ported.
+The port's copy of prographmsa_tpu/distances/align.py.  The batched fill
++ backtrack runs on the card as kernel D2 (distances/nw_cuda.py) when the
+engine policy says so, else on the threaded native host kernel
+(``native.nw_counts_native``); both give exact integers.  On the card a
+failure raises: there is no retry on the host.  The host-backtrack oracle
+of the JAX package (``_batched_W``, ``_make_scan``) is not ported.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ GAP_PARAMS = {"aa": (-10, -2), "codon": (-10, -2), "dna": (-5, -2)}
 
 
 def _load_scoring(name: str) -> np.ndarray:
-    return np.load(_DATA)[name].astype(np.int32)
+    return np.ascontiguousarray(np.load(_DATA)[name], dtype=np.int32)
 
 
 def _seq_codes(spec, seq: np.ndarray) -> np.ndarray:
@@ -39,49 +41,116 @@ def _seq_codes(spec, seq: np.ndarray) -> np.ndarray:
 
 
 def compute_nw_distances(spec, seqs: Dict[str, np.ndarray], order: List[str],
-                         factory, options, batch_pairs: int = 2048):
-    """All-pairs NW distances: counts and gap openings from the native host
-    kernel in chunks of ``batch_pairs``, then the ML distance per pair."""
+                         factory, options, device=None,
+                         engine: str = "native", batch_pairs: int = 0):
+    """All-pairs NW distances: counts and gap openings of every pair, in
+    chunks, then the ML distance per pair on the host.  On the card
+    (``engine_policy.use_device_nw``) the codes go up once, a chunk is one
+    launch of D2 sized by its scratch (or ``batch_pairs``), and the host's
+    ML Newton of a chunk overlaps the next chunk's kernel; on the host a
+    chunk is ``batch_pairs`` (2048) pairs of the native kernel."""
     from .. import native, timings
+    from ..engine_policy import use_device_nw
 
     n = len(order)
     scoring = _load_scoring(spec.name)
     go, ge = GAP_PARAMS[spec.name]
-    codes = {name: _seq_codes(spec, seqs[name]) for name in order}
-    lens = {name: len(codes[name]) for name in order}
-
-    pairs = [(i, j) for i in range(n) for j in range(i + 1, n)]
+    codes = [_seq_codes(spec, seqs[name]) for name in order]
+    lens = np.array([len(c) for c in codes], dtype=np.int32)
+    L = int(lens.max()) if n else 0
+    code_dt = np.uint8 if scoring.shape[0] <= 256 else np.int32
+    cmat = np.zeros((n, max(L, 1)), dtype=code_dt)
+    for i, c in enumerate(codes):
+        cmat[i, :len(c)] = c
+    T = scoring.shape[0]
+    if cmat.max() >= T:
+        # a code the table does not hold (20, an invalid residue, against
+        # the 5 x 5 DNA table) scores 0, as under the JAX device program's
+        # one-hot lookup: one zero row and column, every such code onto it
+        scoring = np.pad(scoring, ((0, 1), (0, 1)))
+        cmat = np.minimum(cmat, T).astype(code_dt)
+    pi, pj = np.triu_indices(n, 1)          # (i, j), i < j, row by row
+    seqlens = (lens[pi] + lens[pj]) / 2.0
     distances = np.zeros((n, n))
     variances = np.zeros((n, n))
 
-    L1 = max(lens.values())
-    code_dt = np.uint8 if scoring.shape[0] <= 256 else np.int32
-    for start in range(0, len(pairs), batch_pairs):
-        chunk = pairs[start:start + batch_pairs]
-        B = len(chunk)
-        s1b = np.zeros((B, L1), dtype=code_dt)
-        s2b = np.zeros((B, L1), dtype=code_dt)
-        l1 = np.zeros(B, dtype=np.int32)
-        l2 = np.zeros(B, dtype=np.int32)
-        for b, (i, j) in enumerate(chunk):
-            c1, c2 = codes[order[i]], codes[order[j]]
-            s1b[b, :len(c1)] = c1
-            s2b[b, :len(c2)] = c2
-            l1[b], l2[b] = len(c1), len(c2)
-        res = native.nw_counts_native(s1b, s2b, l1, l2, scoring, go, ge,
-                                      spec.DIM)
-        if res is None:
-            raise RuntimeError("--nwdist needs the native host library "
-                               "(g++); its device program is not ported yet")
-        counts_b, gaps_b = res
-        seqlens = np.array([(lens[order[i]] + lens[order[j]]) / 2.0
-                            for (i, j) in chunk])
+    def finish(sl, counts_b, gaps_b):
         with timings.phase("ml_newton"):
             db, vb = compute_distances_batch(
-                np.asarray(counts_b[:B], dtype=np.int64),
-                np.asarray(gaps_b[:B], dtype=np.int64), seqlens, factory,
+                np.asarray(counts_b, dtype=np.int64),
+                np.asarray(gaps_b, dtype=np.int64), seqlens[sl], factory,
                 options, spec.name)
-        for b, (i, j) in enumerate(chunk):
-            distances[i, j] = distances[j, i] = db[b]
-            variances[i, j] = variances[j, i] = vb[b]
+        distances[pi[sl], pj[sl]] = distances[pj[sl], pi[sl]] = db
+        variances[pi[sl], pj[sl]] = variances[pj[sl], pi[sl]] = vb
+
+    P = len(pi)
+    if not P:
+        return distances, variances
+    if use_device_nw(engine, P, L, spec.DIM):
+        if device is None:
+            raise ValueError("engine %r runs NW on the card: pass its "
+                             "device" % engine)
+        from .nw_cuda import pairs_per_pass
+        _nw_on_card(cmat, lens, pi, pj, scoring, go, ge, spec.DIM, device,
+                    batch_pairs or pairs_per_pass(L, L, device), finish)
+        return distances, variances
+    chunk = batch_pairs or 2048
+    for s in range(0, P, chunk):
+        sl = slice(s, s + chunk)
+        res = native.nw_counts_native(cmat[pi[sl]], cmat[pj[sl]],
+                                      lens[pi[sl]], lens[pj[sl]], scoring,
+                                      go, ge, spec.DIM)
+        if res is None:
+            raise RuntimeError("--nwdist on the host needs the native host "
+                               "library (g++)")
+        finish(sl, *res)
     return distances, variances
+
+
+def _nw_on_card(cmat, lens, pi, pj, scoring, go, ge, dim, device, chunk,
+                finish):
+    """D2 over the pairs in chunks: each chunk's counts come back by an
+    asynchronous copy, and ``finish`` (the host ML) of a chunk runs while
+    the next chunk's kernel does."""
+    import torch
+
+    from .nw_cuda import nw_counts
+
+    dev = torch.device(device)
+    cm = torch.from_numpy(cmat).to(dev)
+    ln = torch.from_numpy(lens).to(dev)
+    sc = torch.from_numpy(scoring).to(dev)
+    pit = torch.from_numpy(pi.astype(np.int64)).to(dev)
+    pjt = torch.from_numpy(pj.astype(np.int64)).to(dev)
+    pending = None
+    for s in range(0, len(pi), chunk):
+        a, b = pit[s:s + chunk], pjt[s:s + chunk]
+        out = _fetch_async(nw_counts(cm[a], cm[b], ln[a], ln[b], sc, go, ge,
+                                     dim))
+        if pending is not None:
+            finish(pending[0], *_fetched(pending[1]))
+        pending = (slice(s, s + chunk), out)
+    finish(pending[0], *_fetched(pending[1]))
+
+
+def _fetch_async(tensors):
+    """Start copying CUDA tensors into pinned host memory; CPU tensors are
+    returned as they are."""
+    import torch
+
+    if tensors[0].device.type != "cuda":
+        return tensors, None
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            for t in tensors]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record()
+    return host, ev
+
+
+def _fetched(out):
+    host, ev = out
+    if ev is not None:
+        ev.synchronize()
+    return [h.numpy() for h in host]

@@ -4,10 +4,12 @@ Re-derivation of DistanceFactoryAngle.h as one batched count + GEMM: count
 all DIM^K k-mers per sequence, cosine similarity of the count vectors via a
 single matmul, then the distance transform (DistanceFactoryAngle.h:115-128).
 
-The port's copy of prographmsa_tpu/distances/angle.py with the host path
-only: ``compute_angle_distances`` is the float64 parity path (matches the
+The port's copy of prographmsa_tpu/distances/angle.py.
+``compute_angle_distances`` is the float64 parity path (matches the
 reference's double-precision Eigen GEMM, whose rounding decides NJ
-tie-breaks).  The device form of the Gram matrix is still to be ported.
+tie-breaks); ``compute_angle_distances_device`` takes the Gram of the
+integer counts as one float32 product on the card (the ``device`` engine
+only, engine_policy.use_device_angle).
 """
 
 from __future__ import annotations
@@ -83,4 +85,26 @@ def compute_angle_distances(spec, seqs: Dict[str, np.ndarray],
             # sequential-k accumulation (cumsum rounds like a scalar loop)
             G[i, :] = np.cumsum(scaled[i][:, None] * C, axis=0)[-1]
         cos = G * inv_norm[None, :]
+    return _distance_transform(cos, seq_len, options)
+
+
+def compute_angle_distances_device(spec, seqs: Dict[str, np.ndarray],
+                                   order: List[str], options, device):
+    """The k-mer count Gram as one float32 ``torch.matmul`` on ``device``
+    (TF32 off), then the JAX package's host float64 normalisation and
+    transform.  The Gram of integer counts is exact in float32 while its
+    sums stay below 2^24, so the result equals the JAX package's device
+    path bit for bit.  It is not the host path's: that one scales the rows
+    before an Eigen-ordered product, and NJ breaks ties on the last bit."""
+    import torch
+
+    from ..device import full_float32
+
+    counts, seq_len = kmer_counts(spec, seqs, order, spec.kmer_k)
+    full_float32()
+    C = torch.from_numpy(counts.astype(np.float32)).to(device)
+    G = torch.matmul(C, C.T).cpu().numpy().astype(np.float64)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        inv = 1.0 / np.sqrt(np.diag(G))
+        cos = G * inv[:, None] * inv[None, :]
     return _distance_transform(cos, seq_len, options)

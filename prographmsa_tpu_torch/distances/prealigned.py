@@ -7,7 +7,10 @@ DistanceFactoryML::computeDistance.
 
 The O(N²·L) column scan is vectorized: per pair, counts come from one
 bincount over paired residue codes and gap openings from run-length logic on
-the gap masks.
+the gap masks.  When the engine policy sends the stage to the card, kernel
+D1 (distances/prealigned_cuda.py) computes the same integers for every
+pair from the alignment uploaded once; a failure there raises, with no
+retry on the host.
 """
 
 from __future__ import annotations
@@ -89,8 +92,26 @@ def _pair_stats_batch_host(vmat, gmat, pi, pj, dim, count_bound):
     return counts, opens.sum(axis=1).astype(np.int64)
 
 
+def _pair_stats_on_card(vmat, gmat, pi, pj, dim, count_bound, device):
+    """D1 on ``device``: counts [P, dim, dim] int64 and gaps [P] int64."""
+    import torch
+
+    from .prealigned_cuda import pair_stats
+
+    dev = torch.device(device)
+    counts, gaps = pair_stats(
+        torch.from_numpy(vmat.astype(np.int32)).to(dev),
+        torch.from_numpy(gmat.astype(np.uint8)).to(dev),
+        torch.from_numpy(pi.astype(np.int32)).to(dev),
+        torch.from_numpy(pj.astype(np.int32)).to(dev), count_bound)
+    out = np.zeros((len(pi), dim, dim), dtype=np.int64)
+    out[:, :count_bound, :count_bound] = counts.cpu().numpy()
+    return out, gaps.cpu().numpy().astype(np.int64)
+
+
 def compute_prealigned_distances(spec, seqs: Dict[str, np.ndarray],
-                                 order: List[str], factory, options):
+                                 order: List[str], factory, options,
+                                 device=None, engine: str = "native"):
     n = len(order)
     distances = np.zeros((n, n))
     variances = np.zeros((n, n))
@@ -108,6 +129,19 @@ def compute_prealigned_distances(spec, seqs: Dict[str, np.ndarray],
         seqlens[k] = (len(vals[order[i]]) + len(vals[order[j]])) / 2.0
 
     counts_b = gaps_b = None
+    from ..engine_policy import use_device_prealigned
+    Lmsa = max((len(vals[name]) for name in order), default=0)
+    if pairs and use_device_prealigned(engine, n_pairs=len(pairs), L=Lmsa,
+                                       count_bound=count_bound):
+        if device is None:
+            raise ValueError("engine %r runs the prealigned statistics on "
+                             "the card: pass its device" % engine)
+        vmat = np.stack([vals[name] for name in order])
+        gmat = np.stack([gapm[name] for name in order])
+        pi = np.fromiter((i for i, _ in pairs), np.int32, len(pairs))
+        pj = np.fromiter((j for _, j in pairs), np.int32, len(pairs))
+        counts_b, gaps_b = _pair_stats_on_card(vmat, gmat, pi, pj, spec.DIM,
+                                               count_bound, device)
     if counts_b is None and len(pairs) > 8:
         # vectorized host path: ONE bincount over all pairs' column codes
         # plus a forward-filled gap-state scan — replaces the O(N²) Python

@@ -3,10 +3,15 @@
 The port of prographmsa_tpu/engine/level_driver.py: per guide-tree level it
 prepares every ready node on the host (models, graph cleaning), aligns the
 level's pairs in one device batch (align/graph_dp_cuda.py) when ``device``
-is given, and merges each node on the host.  Pairs the batch hands back
-(``None``) and every pair when ``device`` is None are aligned by the host
-``align_graphs`` (engine/progressive.py); under ``--timings`` each such pair
-shows as a ``torch_fb_*`` counter.  ``options`` is the host options object
+is given and the port's ``engine`` sends the level there (``auto``: when
+the level's cells reach the calibrated threshold,
+engine_policy.use_torch_dp), and merges each node on the host.  Pairs the
+batch hands back (``None``) and every pair of a level kept on the host are
+aligned by the host ``align_graphs`` (engine/progressive.py); under
+``--timings`` each pair the batch hands back shows as a ``torch_fb_*``
+counter, and ``torch_levels_device`` / ``torch_levels_host`` count the
+levels each side took (the batch's own ``dp_prep``, ``dp_device`` and
+``dp_harvest`` phases time it).  ``options`` is the host options object
 and carries ``engine="native"`` for the host layers.
 """
 
@@ -19,6 +24,7 @@ from .. import native, timings
 from ..align import graph_dp_cuda
 from ..align.backtrack import AlignmentResult
 from ..align.scores import DynProgScores
+from ..engine_policy import use_torch_dp
 from ..errors import ParityError
 from .progressive import (
     align_graphs, align_progressive_results, create_ancestral_seq_name,
@@ -45,9 +51,11 @@ def _collect_nodes(tree):
 
 
 def progressive_alignment_batched(spec, sequences, tree, repeats, csprofile,
-                                  factory, options, device=None):
+                                  factory, options, device=None,
+                                  engine: str = "torch"):
     """Level-batched progressive alignment; ``device`` (a torch.device)
-    runs each level's DP batch there, None keeps every pair on the host."""
+    runs the DP batch of each level that ``engine`` sends there, None keeps
+    every pair on the host."""
     nodes = _collect_nodes(tree)
     results = [None] * len(nodes)
     nt = native.n_threads()
@@ -69,7 +77,7 @@ def progressive_alignment_batched(spec, sequences, tree, repeats, csprofile,
             if not ready:
                 raise ParityError("tree level scheduling stuck")
             _align_level(ready, nodes, results, tr_counts, spec, factory,
-                         options, device, pool, nt)
+                         options, device, engine, pool, nt)
             done = set(ready)
             pending = [i for i in pending if i not in done]
     finally:
@@ -88,7 +96,7 @@ def progressive_alignment_batched(spec, sequences, tree, repeats, csprofile,
 
 
 def _align_level(ready, nodes, results, tr_counts, spec, factory, options,
-                 device, pool, nt):
+                 device, engine, pool, nt):
     preps, items = {}, []
     for i in ready:
         t, c0, c1 = nodes[i]
@@ -100,7 +108,12 @@ def _align_level(ready, nodes, results, tr_counts, spec, factory, options,
                                                      options)))
 
     batch = [None] * len(items)
+    level_cells = sum(it[0].size * it[1].size for it in items)
+    on_card = device is not None and use_torch_dp(engine, level_cells)
     if device is not None:
+        timings.count("torch_levels_device" if on_card
+                      else "torch_levels_host")
+    if on_card:
         before = graph_dp_cuda.fallback_stats()
         batch = graph_dp_cuda.align_pairs_device(items, device)
         after = graph_dp_cuda.fallback_stats()

@@ -1,7 +1,9 @@
-"""The port's CLI (python -m prographmsa_tpu_torch.cli) against the goldens,
-byte for byte, with the DP batch on ``--device cpu`` (the kernels' plain
-PyTorch versions).  On the card chip_smoke.py drives the same CLI with
-``--device cuda`` on fam100 and fam500.
+"""The port's CLI (python -m prographmsa_tpu_torch.cli) and its dist tool
+(python -m prographmsa_tpu_torch.dist_cli) against the goldens, byte for
+byte, with the card's stages (DP batch, NW, prealigned statistics) on
+``--device cpu`` (the kernels' plain PyTorch versions).  On the card
+chip_smoke.py drives the same CLI with ``--device cuda`` on fam100 and
+fam500.
 """
 
 import os
@@ -11,7 +13,8 @@ import sys
 import pytest
 import torch
 
-from test_e2e_differential import FIX, G, REPO, _strip_header, run_cli
+from test_e2e_differential import (DIST_CASES, FIX, G, REPO, _strip_header,
+                                   run_cli)
 
 CASES = [
     ("t_fam6.fasta", ["--fasta", "-t", G + "/tree0_fam6.nwk",
@@ -23,6 +26,9 @@ CASES = [
                          "-t", G + "/tree0_rep8.nwk", FIX + "/rep8.fasta"]),
     ("c3_dna.fasta", ["--fasta", "--dna", "--custom_model",
                       FIX + "/dna.qmat", FIX + "/dna12.fasta"]),
+    # free tree from NW distances, re-trees from the prealigned statistics
+    ("c2_fam20.fasta", ["--fasta", "--mldist", "--nwdist",
+                        FIX + "/fam20.fasta"]),
 ]
 
 
@@ -53,6 +59,37 @@ def test_port_cli_golden(golden, args, tmp_path):
     _check(golden, out, stderr)
 
 
+@pytest.mark.parametrize("golden,args", DIST_CASES,
+                         ids=[c[0] for c in DIST_CASES])
+def test_port_dist_cli_golden(golden, args, tmp_path):
+    out = str(tmp_path / "out.tsv")
+    run_cli(args + ["--device", "cpu"], out,
+            module="prographmsa_tpu_torch.dist_cli")
+    with open(out) as f, open(os.path.join(G, golden)) as g:
+        assert f.read() == g.read()
+
+
+def test_port_cli_device_engine_golden(tmp_path):
+    """``--engine device`` (the float32 stages on the card too) on a fixed
+    tree, whose output the distances do not touch."""
+    out = str(tmp_path / "out")
+    golden, args = CASES[1]
+    stderr = run_cli(args + ["--engine", "device", "--device", "cpu"], out,
+                     module="prographmsa_tpu_torch.cli")
+    _check(golden, out, stderr)
+
+
+def test_auto_engine_needs_cuda(tmp_path):
+    p = subprocess.run(
+        [sys.executable, "-m", "prographmsa_tpu_torch.cli", "--fasta",
+         "--engine", "auto", "--device", "cpu", FIX + "/fam6.fasta", "-o",
+         str(tmp_path / "out")], cwd=REPO, capture_output=True, text=True,
+        timeout=300)
+    assert p.returncode == 2
+    assert "--engine auto" in p.stderr
+    assert not (tmp_path / "out").exists()
+
+
 def test_port_cli_native_engine_golden(tmp_path):
     out = str(tmp_path / "out")
     golden, args = CASES[0]
@@ -81,6 +118,8 @@ def test_port_never_imports_jax(tmp_path):
                        capture_output=True, text=True, timeout=600)
     assert "NO-JAX" in p.stdout, p.stderr[-2000:]
     assert "torch_pairs_device       5" in p.stderr
+    assert "torch_levels_device      3" in p.stderr   # every level on it
+    assert "torch_levels_host" not in p.stderr
     with open(out) as f, open(G + "/t_fam6.fasta") as g:
         assert f.read() == g.read()
 

@@ -1,0 +1,321 @@
+"""The port's guide-tree distance stages against the JAX package, on the
+same numpy-seeded inputs, with JAX on the CPU: NW counts (kernel D2's plain
+version ``nw_torch``), the prealigned pair statistics (D1's plain version
+``pair_stats_torch``), the angle distances' Gram on the card's path and the
+CS mix.  The numpy models of D1's warp-wide gap scan and of D2's strip
+wavefront hold the kernels' own schedules against the host.  On the card
+chip_smoke.py holds D1 and D2 against the same plain versions.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from prographmsa_tpu import cs_profile as ref_cs
+from prographmsa_tpu.alphabet import AA_SPEC as REF_AA
+from prographmsa_tpu.config import Options as RefOptions
+from prographmsa_tpu.distances import angle as ref_angle
+from prographmsa_tpu.distances.nw_device import nw_counts_device
+from prographmsa_tpu.distances.prealigned_device import pair_stats_device
+from prographmsa_tpu.models.factory import get_default_model_factory as ref_f
+from prographmsa_tpu_torch import checks, native
+from prographmsa_tpu_torch.alphabet import AA_SPEC, DNA_SPEC
+from prographmsa_tpu_torch.config import Options
+from prographmsa_tpu_torch.cs_profile import CSProfileLibrary
+from prographmsa_tpu_torch.distances import angle
+from prographmsa_tpu_torch.distances.align import (GAP_PARAMS, _load_scoring,
+                                                   _seq_codes)
+from prographmsa_tpu_torch.distances.nw_cuda import (SMEM_MAX, bits_per_pair,
+                                                     nw_counts, nw_torch,
+                                                     pairs_per_pass, plan_nw)
+from prographmsa_tpu_torch.distances.prealigned import (_pair_stats,
+                                                        _pair_stats_batch_host)
+from prographmsa_tpu_torch.distances.prealigned_cuda import (pair_stats,
+                                                             pair_stats_torch)
+from prographmsa_tpu_torch.io.fasta import read_fasta
+from prographmsa_tpu_torch.models.factory import get_default_model_factory
+
+FIX = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "fixtures")
+T = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _fasta_codes(name, n=None):
+    seqs, _ = read_fasta(os.path.join(FIX, name))
+    order = sorted(seqs)[:n]
+    codes = [_seq_codes(AA_SPEC, AA_SPEC.encode(seqs[k])) for k in order]
+    lens = np.array([len(c) for c in codes], np.int32)
+    cm = np.zeros((len(codes), lens.max()), np.uint8)
+    for i, c in enumerate(codes):
+        cm[i, :len(c)] = c
+    pi, pj = np.triu_indices(len(codes), 1)
+    return cm[pi], cm[pj], lens[pi], lens[pj]
+
+
+def _random_batch(rng, T_, B, L1, L2, zero=True, dtype=np.uint8):
+    s1 = rng.integers(0, T_, (B, L1)).astype(dtype)
+    s2 = rng.integers(0, T_, (B, L2)).astype(dtype)
+    l1 = rng.integers(1, L1 + 1, B).astype(np.int32)
+    l2 = rng.integers(1, L2 + 1, B).astype(np.int32)
+    if zero:
+        l1[0] = 0
+        l2[1] = 0
+        l1[2] = l2[2] = 0
+    l1[3], l2[3] = L1, L2
+    return s1, s2, l1, l2
+
+
+def _nw_cases():
+    rng = np.random.default_rng(7)
+    aa = _load_scoring("aa")
+    asym = rng.integers(-9, 12, (21, 21)).astype(np.int32)
+    assert not np.array_equal(asym, asym.T)
+    return {
+        "fam6": (*_fasta_codes("fam6.fasta"), aa, *GAP_PARAMS["aa"], 20),
+        "fam20": (*_fasta_codes("fam20.fasta", 12), aa, *GAP_PARAMS["aa"],
+                  20),
+        "asymmetric": (*_random_batch(rng, 21, 24, 47, 31), asym, -10, -2,
+                       20),
+        "codon": (*_random_batch(rng, 62, 10, 40, 45),
+                  _load_scoring("codon"), *GAP_PARAMS["codon"], 61),
+        "dna": (*_random_batch(rng, 5, 12, 38, 38, dtype=np.int32),
+                _load_scoring("dna"), *GAP_PARAMS["dna"], 4),
+    }
+
+
+NW_CASES = _nw_cases()
+
+
+@pytest.mark.parametrize("case", list(NW_CASES))
+def test_nw_torch_matches_jax_and_native(case):
+    s1, s2, l1, l2, sc, go, ge, dim = NW_CASES[case]
+    counts, gaps = nw_torch(T(s1), T(s2), T(l1), T(l2), T(sc), go, ge, dim)
+    ref_c, ref_g = nw_counts_device(s1, s2, l1, l2, sc, go, ge, dim)
+    nat_c, nat_g = native.nw_counts_native(s1, s2, l1, l2, sc, go, ge, dim)
+    assert counts.dtype == torch.int32 and gaps.dtype == torch.int32
+    assert np.array_equal(counts.numpy(), ref_c.astype(np.int64))
+    assert np.array_equal(gaps.numpy(), np.asarray(ref_g))
+    assert np.array_equal(counts.numpy(), nat_c)
+    assert np.array_equal(gaps.numpy(), nat_g)
+    assert counts.sum() > 0
+
+
+@pytest.mark.parametrize("case", ["asymmetric", "codon"])
+def test_nw_warp_model_matches_nw_torch(case):
+    """D2's schedule (strips of 32 rows, the row buffer lane 31 refills,
+    two bits a cell) on the CPU, pair by pair."""
+    s1, s2, l1, l2, sc, go, ge, dim = NW_CASES[case]
+    counts, gaps = nw_torch(T(s1), T(s2), T(l1), T(l2), T(sc), go, ge, dim)
+    for b in range(len(l1)):
+        c, g = checks.nw_warp_model(s1[b, :l1[b]], s2[b, :l2[b]], sc, go, ge,
+                                    dim)
+        assert np.array_equal(c, counts[b].numpy()), b
+        assert g == int(gaps[b]), b
+
+
+def test_nw_counts_takes_the_plain_version_on_cpu():
+    s1, s2, l1, l2, sc, go, ge, dim = NW_CASES["fam6"]
+    a = nw_counts(T(s1), T(s2), T(l1), T(l2), T(sc), go, ge, dim)
+    b = nw_torch(T(s1), T(s2), T(l1), T(l2), T(sc), go, ge, dim)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_plan_nw_sizes_launches_by_scratch():
+    p = plan_nw(124750, 21, 319, 319, 20)
+    assert p.warps == 4 and p.smem_bytes <= SMEM_MAX
+    assert p.pairs * bits_per_pair(319, 319) <= 1 << 29 < (
+        (p.pairs + 1) * bits_per_pair(319, 319))
+    assert plan_nw(8, 21, 2000, 1980, 20).pairs == 8
+    # codon table and long pairs: fewer warps per block, never too much
+    # shared memory
+    p = plan_nw(40, 62, 6000, 6000, 61)
+    assert p.warps < 4 and p.smem_bytes <= SMEM_MAX
+    with pytest.raises(ValueError):
+        plan_nw(1, 21, 40000, 40000, 20)
+    assert pairs_per_pass(319, 319, "cuda") == (
+        (1 << 29) // bits_per_pair(319, 319))
+    assert pairs_per_pass(319, 319, "cpu") >= 1
+
+
+def _random_msa(rng, chars, n, L):
+    chars = list(chars) + ["-", "-", "X"]
+    rows = []
+    for _ in range(n):
+        s = "".join(rng.choice(chars) for _ in range(L))
+        rows.append(np.frombuffer(s.encode(), np.uint8).astype(np.int16))
+    # an all-gap row, and two rows with a common run of gaps (both-gap
+    # columns are transparent)
+    rows[1][:] = ord("-")
+    rows[2][10:25] = ord("-")
+    rows[3][10:25] = ord("-")
+    return rows
+
+
+@pytest.mark.parametrize("alpha,cb", [("aa", 20), ("dna", 4)])
+def test_pair_stats_torch_matches_jax_and_host(alpha, cb):
+    spec = AA_SPEC if alpha == "aa" else DNA_SPEC
+    rng = np.random.default_rng(11 if alpha == "aa" else 12)
+    rows = _random_msa(rng, "ACDEFGHIKLMNPQRSTVWY" if alpha == "aa"
+                       else "ACGT", 9, 77)
+    vals = np.stack([spec.values(r) for r in rows]).astype(np.int32)
+    gapm = np.stack([spec.is_gap(r) for r in rows])
+    pi, pj = (a.astype(np.int32) for a in np.triu_indices(len(rows), 1))
+    counts, gaps = pair_stats_torch(T(vals), T(gapm.astype(np.uint8)), T(pi),
+                                    T(pj), cb)
+    ref_c, ref_g = pair_stats_device(vals, gapm, pi, pj, cb, spec.DIM)
+    host_c, host_g = _pair_stats_batch_host(vals, gapm, pi.astype(np.intp),
+                                            pj.astype(np.intp), spec.DIM, cb)
+    assert np.array_equal(counts.numpy(), ref_c[:, :cb, :cb])
+    assert np.array_equal(gaps.numpy(), ref_g)
+    assert np.array_equal(counts.numpy(), host_c[:, :cb, :cb])
+    assert np.array_equal(gaps.numpy(), host_g)
+    assert np.array_equal(
+        pair_stats(T(vals), T(gapm.astype(np.uint8)), T(pi), T(pj), cb)[1],
+        gaps)
+    assert gaps.sum() > 0 and counts.sum() > 0
+
+
+@pytest.mark.parametrize("L", [1, 31, 32, 33, 64, 100, 257])
+def test_pair_stats_warp_gap_scan_model(L):
+    """D1's gap openings, 32 columns a step by ballots, against the host's
+    per-pair state machine: random masks, all-gap rows, both-gap runs
+    across step boundaries."""
+    rng = np.random.default_rng(L)
+    v = np.zeros(L, np.int64)
+    for k in range(12):
+        g1 = rng.random(L) < 0.35
+        g2 = rng.random(L) < 0.35
+        if k % 3 == 0:
+            g2[L // 4: 3 * L // 4] = g1[L // 4: 3 * L // 4] = True
+        if k == 1:
+            g1[:] = True
+        if k == 2:
+            g1[:] = g2[:] = True
+        assert checks.pair_gaps_warp_model(g1, g2) == _pair_stats(
+            v, g1, v, g2, 20, 20)[1]
+
+
+def _encoded(fixture):
+    seqs, _ = read_fasta(os.path.join(FIX, fixture))
+    enc = {}
+    for k, v in seqs.items():
+        e = AA_SPEC.encode(v)
+        if len(e) and chr(e[0]) == "M":
+            e = e[1:]
+        enc[k] = e
+    return enc
+
+
+@pytest.mark.parametrize("fixture", ["fam20.fasta", "fam100.fasta",
+                                     "fam500.fasta"])
+def test_angle_device_bit_identical_to_jax(fixture):
+    enc = _encoded(fixture)
+    order = sorted(enc)
+    d, v = angle.compute_angle_distances_device(AA_SPEC, enc, order,
+                                                Options(), "cpu")
+    rd, rv = ref_angle.compute_angle_distances_device(REF_AA, enc, order,
+                                                      RefOptions())
+    assert np.array_equal(d, rd, equal_nan=True)
+    assert np.array_equal(v, rv, equal_nan=True)
+
+
+def _cs_items(spec, factory_fn, options_cls):
+    seqs, _ = read_fasta(os.path.join(FIX, "fam6.fasta"))
+    opts = options_cls(sequence_file=os.path.join(FIX, "fam6.fasta"),
+                       cs_file=os.path.join(FIX, "cs16.lib"), fasta_flag=True)
+    fact = factory_fn(opts, spec, [spec.encode(s) for s in seqs.values()])
+    return [(spec.encode(s), fact.get_model(0.3, opts))
+            for s in seqs.values()]
+
+
+def test_cs_mix_within_1e5_of_jax_and_host():
+    """The float32 window scores and mix under ``device`` against JAX's
+    ``_pk_mix_device`` and the host float64 path (TF32 plays no part on
+    the CPU; the card's path sets it off)."""
+    lib = os.path.join(FIX, "cs16.lib")
+    items = _cs_items(AA_SPEC, get_default_model_factory, Options)
+    ref_items = _cs_items(REF_AA, ref_f, RefOptions)
+    host, dev = CSProfileLibrary(lib), CSProfileLibrary(lib)
+    host.prime_profiles(items)
+    dev.prime_profiles(items, "device", torch.device("cpu"))
+    ref = ref_cs.CSProfileLibrary(lib)
+    ref.prime_profiles(ref_items, engine="pallas")
+    worst = 0.0
+    for it, rit in zip(items, ref_items):
+        pd = dev._cache[dev._key(*it)]
+        worst = max(worst, np.max(np.abs(pd - host._cache[host._key(*it)])),
+                    np.max(np.abs(pd - ref._cache[ref._key(*rit)])))
+    assert worst < 1e-5, worst
+    # the mix itself against JAX's on the same windows
+    rng = np.random.default_rng(5)
+    win = rng.integers(0, 21, (300, host.ncols))
+    center = host.ncols // 2
+    mine = dev._pk_mix_device(win, center, torch.device("cpu"))
+    theirs = ref._pk_mix_device(win, center)
+    assert np.max(np.abs(mine - theirs) / np.abs(theirs).max()) < 1e-5
+
+
+def test_cs_mix_stays_on_host_except_under_device():
+    items = _cs_items(AA_SPEC, get_default_model_factory, Options)
+    for engine in ("torch", "auto", "native"):
+        lib = CSProfileLibrary(os.path.join(FIX, "cs16.lib"))
+        lib._pk_mix_device = lambda *a, **k: pytest.fail(engine)
+        lib.prime_profiles(items, engine, torch.device("cpu"))
+
+
+def test_nw_codes_beyond_the_table_score_zero_as_in_jax():
+    """DNA with invalid residues: code 20 against the 5 x 5 table scores 0
+    under the JAX device program's one-hot lookup; the port's distances
+    map such codes onto a zero row and column, on every tier."""
+    from prographmsa_tpu_torch.distances.align import compute_nw_distances
+    rng = np.random.default_rng(3)
+    seqs = {}
+    for k in range(5):
+        s = "".join(rng.choice(list("ACGTN"), 40 + k))
+        seqs["s%d" % k] = DNA_SPEC.encode(s)
+    order = sorted(seqs)
+    codes = [_seq_codes(DNA_SPEC, seqs[k]) for k in order]
+    assert max(c.max() for c in codes) == 20
+    cm = np.zeros((5, 44), np.int32)
+    for i, c in enumerate(codes):
+        cm[i, :len(c)] = c
+    lens = np.array([len(c) for c in codes], np.int32)
+    pi, pj = np.triu_indices(5, 1)
+    sc = _load_scoring("dna")
+    ref_c, ref_g = nw_counts_device(cm[pi], cm[pj], lens[pi], lens[pj], sc,
+                                    *GAP_PARAMS["dna"], 4)
+    opts = Options(mldist_flag=True, nwdist_flag=True, dna_flag=True,
+                   cmodel_file=os.path.join(FIX, "dna.qmat"))
+    fac = get_default_model_factory(opts, DNA_SPEC)
+    got = {}
+    for engine, device in (("torch", "cpu"), ("native", None)):
+        got[engine] = compute_nw_distances(DNA_SPEC, seqs, order, fac, opts,
+                                           device, engine)
+    assert all(np.array_equal(a, b) for a, b in zip(got["torch"],
+                                                    got["native"]))
+    cm5 = np.minimum(cm, 5)
+    sc5 = np.pad(sc, ((0, 1), (0, 1)))
+    mine = nw_torch(T(cm5[pi]), T(cm5[pj]), T(lens[pi]), T(lens[pj]),
+                    T(sc5), *GAP_PARAMS["dna"], 4)
+    assert np.array_equal(mine[0].numpy(), ref_c.astype(np.int64))
+    assert np.array_equal(mine[1].numpy(), np.asarray(ref_g))
+
+
+def test_nw_distances_in_chunks_equal_one_pass_and_native():
+    """The card's chunk loop (each chunk's ML Newton after the next chunk's
+    launch) on the plain version: chunks of 37 pairs, one pass and the
+    native host kernel give the same distances."""
+    from prographmsa_tpu_torch.distances.align import compute_nw_distances
+    enc = _encoded("fam20.fasta")
+    order = sorted(enc)
+    opts = Options(mldist_flag=True, nwdist_flag=True)
+    fac = get_default_model_factory(opts, AA_SPEC)
+    runs = [compute_nw_distances(AA_SPEC, enc, order, fac, opts, "cpu",
+                                 "torch", batch_pairs=37),
+            compute_nw_distances(AA_SPEC, enc, order, fac, opts, "cpu",
+                                 "torch"),
+            compute_nw_distances(AA_SPEC, enc, order, fac, opts)]
+    for d, v in runs[1:]:
+        assert np.array_equal(d, runs[0][0]) and np.array_equal(v, runs[0][1])
