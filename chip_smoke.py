@@ -39,7 +39,10 @@ outside the pairs' cells; that write stands beside the bound and not in it:
 chase is a chain of dependent reads that no roofline shows, so it has a
 second bound, ``chain_ms``: the longest walk's steps times one dependent
 read from shared memory (``chain_l2_ms``: from L2), both latencies measured
-on the card by pgm_chase_latency.
+on the card by pgm_chase_latency.  D2's operations are NW_CELL_OPS a cell
+at the rates each issues at: int32 at INT32_OPS_S, its DPX maxima at the
+rates pgm_dpx_rate measures in this run (nw_bound); ``bound_old_ms`` is
+its bound before DPX (NW_CELL_OPS_OLD int32 operations a cell).
 """
 
 from __future__ import annotations
@@ -127,10 +130,17 @@ S_CELL_OPS = {"den = v1 * v2": 1, "num / den": DIV_OPS,
               "body: three sums": 3, "tail: three sums": 3,
               "body or tail: position, compare, select": 3,
               "NaN or < NEG to NEG: two compares, select": 3}
-# D2's int32 operations per cell, term by term.
-NW_CELL_OPS = {"X: two sums, max": 3, "Y: two sums, max": 3,
-               "diagonal: sum": 1, "W: two max": 2,
-               "backtrack bits: two compares": 2}
+# D2's fewest instructions a cell, by the rate each issues at: two sums,
+# three DPX maxima (X and Y one __viaddmax_s32 each, W the max of three),
+# the backtrack bits (both packed by one instruction at best).
+NW_CELL_OPS = {"int32": {"diagonal: sum": 1, "W + go: sum": 1,
+                         "backtrack bits: one insert": 1},
+               "viaddmax": {"X: sum and max": 1, "Y: sum and max": 1},
+               "vibmax": {"W: max of three": 1}}
+# The count D2's bound took before DPX, int32 operations a cell (X, Y: two
+# sums and a max each; the diagonal's sum; W: two max; two compares for the
+# bits): bound_old_ms.
+NW_CELL_OPS_OLD = 11
 # D1's int32 operations per pair and column, term by term.
 PAIR_COL_OPS = {"both rows ungapped: two tests, and": 3,
                 "both values in range: two compares, and": 3,
@@ -1082,25 +1092,54 @@ def all_pairs(cm, lens):
     return cm[pi], cm[pj], lens[pi], lens[pj]
 
 
-def nw_bound(l1, l2, T, dim, code_bytes):
-    """(bound_ms, bound_by) of D2 on these pairs: each pair's codes, the
-    lengths and the table in once, counts and gaps out once; NW_CELL_OPS
-    int32 operations a cell."""
+def dpx_rates():
+    """Operations a second of __viaddmax_s32 and __vibmax_s32 on this card:
+    pgm_dpx_rate's 8 independent chains a thread, 8 blocks of 256 threads
+    an SM, the time per round from two round counts."""
+    L = _build.lib()
+    sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+    blocks = 8 * torch.cuda.get_device_properties(0).multi_processor_count
+    rates = {}
+    for mode, name in ((0, "viaddmax"), (1, "vibmax")):
+        t = [min(time_cuda(lambda: _build.launch(
+            (), L.pgm_dpx_rate, mode, blocks, rounds, _build.ptr(sink)), 3)
+            for _ in range(2)) for rounds in (1024, 9216)]
+        rates[name] = blocks * 256 * 8 * 8192 / ((t[1] - t[0]) / 1e3)
+    return rates
+
+
+def nw_bound(l1, l2, T, dim, code_bytes, dpx):
+    """(bound_ms, bound_by, bound_old_ms) of D2 on these pairs: each pair's
+    codes, the lengths and the table in once, counts and gaps out once;
+    NW_CELL_OPS a cell, timed as the largest of the int32 ones at
+    INT32_OPS_S, the DPX ones at the ``dpx`` rates (dpx_rates) and all of
+    them at one issue a lane and clock (F32_INSTR_S): the least time
+    whether or not the DPX maxima share the int32 lanes.  bound_old_ms:
+    NW_CELL_OPS_OLD int32 operations a cell (the first form's reckoning)."""
     B = len(l1)
     by = (code_bytes * int(l1.sum() + l2.sum()) + 8 * B + 4 * T * T
           + 4 * B * dim * dim + 4 * B)
-    op = float((l1.astype(np.int64) * l2).sum()) * sum(NW_CELL_OPS.values())
-    tb, to = by / HBM_BYTES_S * 1e3, op / INT32_OPS_S * 1e3
-    return max(tb, to), "bytes" if tb >= to else "operations"
+    cells = float((l1.astype(np.int64) * l2).sum())
+    n = {k: sum(v.values()) for k, v in NW_CELL_OPS.items()}
+    to = cells * max(n["int32"] / INT32_OPS_S,
+                     n["viaddmax"] / dpx["viaddmax"]
+                     + n["vibmax"] / dpx["vibmax"],
+                     sum(n.values()) / F32_INSTR_S) * 1e3
+    tb = by / HBM_BYTES_S * 1e3
+    old = max(tb, cells * NW_CELL_OPS_OLD / INT32_OPS_S * 1e3)
+    return max(tb, to), "bytes" if tb >= to else "operations", old
 
 
-def nw_check(name, arrs, go, ge, dim, dev, plain=True, host=True, reps=0):
+def nw_check(name, arrs, go, ge, dim, dev, plain=True, host=True, reps=0,
+             dpx=None):
     """D2 against nw_torch (``plain``) and native.nw_counts_native
     (``host``), bit for bit; with ``reps``, its call and device times (and
-    the plain version's) and its bound."""
+    the plain version's) and its bound under the ``dpx`` rates."""
     s1, s2, l1, l2, sc = arrs
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrs]
-    c, g = nw_counts(*args, go, ge, dim)
+    plan = plan_nw(len(l1), sc.shape[0], s1.shape[1], s2.shape[1], dim,
+                   (sc.min(), sc.max()), s1.itemsize)
+    c, g = nw_counts(*args, go, ge, dim, plan=plan)
     torch.cuda.synchronize()
     if host:
         cn, gn = native.nw_counts_native(s1, s2, l1, l2, sc, go, ge, dim)
@@ -1109,8 +1148,7 @@ def nw_check(name, arrs, go, ge, dim, dev, plain=True, host=True, reps=0):
         diff("nw", g.long().cpu(), torch.from_numpy(gn).long(),
              "%s gaps vs native" % name)
     out = {"pairs": len(l1), "cells": int((l1.astype(np.int64) * l2).sum()),
-           "plan": plan_nw(len(l1), sc.shape[0], s1.shape[1], s2.shape[1],
-                           dim, s1.itemsize)}
+           "rows": plan.rows, "plan": plan}
     if plain:
         fn = lambda: nw_torch(*args, go, ge, dim)
         if reps:
@@ -1121,58 +1159,86 @@ def nw_check(name, arrs, go, ge, dim, dev, plain=True, host=True, reps=0):
         diff("nw", c, ct, name + " counts")
         diff("nw", g, gt, name + " gaps")
     if reps:
-        kern = lambda: nw_counts(*args, go, ge, dim)
+        kern = lambda: nw_counts(*args, go, ge, dim, plan=plan)
         out["ms"] = min(time_cuda(kern, reps) for _ in range(2))
         out["device_ms"] = min(device_time(kern, reps) for _ in range(2))
-        out["bound_ms"], out["bound_by"] = nw_bound(l1, l2, sc.shape[0], dim,
-                                                    s1.itemsize)
+        out["bound_ms"], out["bound_by"], out["bound_old_ms"] = nw_bound(
+            l1, l2, sc.shape[0], dim, s1.itemsize, dpx)
     return out
 
 
-def phase_nw(dev, tmp):
+def nw_sass():
+    """Opcode counts of D2's SASS at R = 4 (uint8 codes, with the walk), and
+    of the DPX rate probe; both blocks written to chiprun_out/."""
+    out = {}
+    for key, pat in (("nw_R4", r"nw_kernelIhLi4ELb1E"),
+                     ("dpx_viaddmax", r"dpx_rate_kernelILi0E"),
+                     ("dpx_vibmax", r"dpx_rate_kernelILi1E")):
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
+                         kernel_sass(pat, "sass_%s.txt" % key))
+        out[key] = {op: ops.count(op) for op in sorted(set(ops))
+                    if op.startswith(("VI", "SHFL", "PRMT", "I2I", "SGXT"))}
+        out[key]["all"] = len(ops)
+    return out
+
+
+def phase_nw(dev):
     """D2 against nw_torch and the native tier on fam100's 4,950 pairs, 8
-    random pairs of 2000 x 1980, and small batches under the codon (62
+    random pairs of 2000 x 1980, the strip-edge pairs (checks.NW_STRIP_N1
+    x NW_STRIP_N2, 128 copies) and small batches under the codon (62
     codes, dim 61) and DNA (int32 codes) tables and a random asymmetric
     table with pairs of unequal and of zero length; timed at the first two
     and on fam500's 124,750 pairs (against the native tier on the first
-    4,096), where the card's rate and the host's are measured."""
+    4,096), where the card's rate and the host's are measured.  The bound
+    takes the DPX rates measured here (dpx_rates); the SASS's DPX, shuffle
+    and byte-extract counts are reported."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(23)
     aa = _load_scoring("aa")
     go, ge = GAP_PARAMS["aa"]
+    dpx = dpx_rates()
+    sass = nw_sass()
     res = {}
     cm100, lens100 = fasta_codes(FIX + "/fam100.fasta")
     res["fam100"] = nw_check("fam100", (*all_pairs(cm100, lens100), aa), go,
-                             ge, 20, dev, reps=20)
+                             ge, 20, dev, reps=20, dpx=dpx)
     s1 = rng.integers(0, 21, (8, 2000)).astype(np.uint8)
     s2 = rng.integers(0, 21, (8, 1980)).astype(np.uint8)
     res["8x2000x1980"] = nw_check(
         "8x2000x1980", (s1, s2, np.full(8, 2000, np.int32),
                         np.full(8, 1980, np.int32), aa), go, ge, 20, dev,
-        reps=3)
+        reps=3, dpx=dpx)
     asym = rng.integers(-9, 12, (21, 21)).astype(np.int32)
+    other = {}
+    other["strip_edges"] = nw_check(
+        "strip_edges", (*checks.nw_strip_edge_pairs(rng, 128), asym), go, ge,
+        20, dev)
     l1 = rng.integers(0, 90, 96).astype(np.int32)
     l2 = rng.integers(0, 90, 96).astype(np.int32)
     l1[0] = l2[1] = l1[2] = l2[2] = 0
-    nw_check("asymmetric", (rng.integers(0, 21, (96, 90)).astype(np.uint8),
-                            rng.integers(0, 21, (96, 70)).astype(np.uint8),
-                            l1, np.minimum(l2, 70), asym), go, ge, 20, dev)
-    nw_check("codon", (rng.integers(0, 62, (40, 150)).astype(np.uint8),
-                       rng.integers(0, 62, (40, 140)).astype(np.uint8),
-                       np.full(40, 150, np.int32),
-                       rng.integers(100, 141, 40).astype(np.int32),
-                       _load_scoring("codon")), *GAP_PARAMS["codon"], 61, dev)
-    nw_check("dna", (rng.integers(0, 5, (40, 160)).astype(np.int32),
-                     rng.integers(0, 5, (40, 161)).astype(np.int32),
-                     rng.integers(120, 161, 40).astype(np.int32),
-                     np.full(40, 161, np.int32), _load_scoring("dna")),
-             *GAP_PARAMS["dna"], 4, dev)
+    other["asymmetric"] = nw_check(
+        "asymmetric", (rng.integers(0, 21, (96, 90)).astype(np.uint8),
+                       rng.integers(0, 21, (96, 70)).astype(np.uint8),
+                       l1, np.minimum(l2, 70), asym), go, ge, 20, dev)
+    other["codon"] = nw_check(
+        "codon", (rng.integers(0, 62, (40, 150)).astype(np.uint8),
+                  rng.integers(0, 62, (40, 140)).astype(np.uint8),
+                  np.full(40, 150, np.int32),
+                  rng.integers(100, 141, 40).astype(np.int32),
+                  _load_scoring("codon")), *GAP_PARAMS["codon"], 61, dev)
+    other["dna"] = nw_check(
+        "dna", (rng.integers(0, 5, (40, 160)).astype(np.int32),
+                rng.integers(0, 5, (40, 161)).astype(np.int32),
+                rng.integers(120, 161, 40).astype(np.int32),
+                np.full(40, 161, np.int32), _load_scoring("dna")),
+        *GAP_PARAMS["dna"], 4, dev)
     # fam500: the card's rate on all pairs, the native tier on a slice
     arrs = (*all_pairs(*fasta_codes(FIX + "/fam500.fasta")), aa)
-    nw_check("fam500[:4096]", tuple(a[:4096] for a in arrs[:4]) + (aa,), go,
-             ge, 20, dev, plain=False)
+    other["fam500[:4096]"] = nw_check(
+        "fam500[:4096]", tuple(a[:4096] for a in arrs[:4]) + (aa,), go, ge,
+        20, dev, plain=False)
     res["fam500"] = nw_check("fam500", arrs, go, ge, 20, dev, plain=False,
-                             host=False, reps=2)
+                             host=False, reps=2, dpx=dpx)
     # the native tier's rate on fam100's pairs, all threads
     a100 = (*all_pairs(cm100, lens100), aa)
     t1 = time.perf_counter()
@@ -1184,7 +1250,10 @@ def phase_nw(dev, tmp):
              / native.n_threads()}
     cj = lambda d: json.dumps(d, separators=(",", ":"))
     say("nw", t0, vs_plain="bit-identical", vs_native="bit-identical",
-        shapes="fam100,8x2000x1980,asymmetric,codon,dna,fam500",
+        shapes=",".join(list(res) + list(other)),
+        rows=cj({k: r["rows"] for k, r in {**res, **other}.items()}),
+        dpx_ops_s=cj({k: float("%.4g" % v) for k, v in dpx.items()}),
+        int32_ops_s="%.4g" % INT32_OPS_S, sass=cj(sass),
         native_threads=native.n_threads(), native_fam100_s="%.4f" % nat_s,
         **{k: cj({kk: (round(v, 5) if isinstance(v, float) else
                        (v._asdict() if hasattr(v, "_asdict") else v))
@@ -1354,7 +1423,8 @@ def dist_row(k, launches, res, main_shape):
     for shape, r in res.items():
         sfx = "" if shape == main_shape else "_" + shape
         for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "library_device_ms"):
+                    "bound_old_ms", "rows", "library_ms",
+                    "library_device_ms"):
             if key in r:
                 row[key + sfx] = r[key]
         if main_shape == shape:
@@ -1373,7 +1443,7 @@ def main():
         launches, launches_c2, largest = phase_fam100(dev, tmp)
         phase_walls(tmp)
         launches500, root, sum500, sum500_dev = phase_levels(dev, tmp)
-        res_nw, rates = phase_nw(dev, tmp)
+        res_nw, rates = phase_nw(dev)
         res_ps, rates_ps = phase_pair_stats(dev, (
             ("c2_fam100", GOLD + "/c2_fam100.fasta"),
             ("fam500_i0", os.path.join(tmp, "l500.fasta"))))

@@ -123,11 +123,13 @@ def lib() -> ctypes.CDLL:
         L.pgm_fill_max_clusters.restype = i
         L.pgm_chase.argtypes = [p] * 14 + [i] * 10 + [p, p, p]
         L.pgm_chase_latency.argtypes = [p, i, i, i, p, p]
-        L.pgm_nw.argtypes = [p] * 5 + [i] * 10 + [p] * 4
+        L.pgm_nw.argtypes = [p] * 5 + [i] * 12 + [p] * 4
+        L.pgm_dpx_rate.argtypes = [i, i, i, p, p]
         L.pgm_pair_stats.argtypes = [p] * 4 + [i] * 4 + [p] * 3
         for fn in (L.pgm_s_prep, L.pgm_s, L.pgm_exact_s, L.pgm_q_check,
                    L.pgm_empty, L.pgm_fill, L.pgm_chase,
-                   L.pgm_chase_latency, L.pgm_nw, L.pgm_pair_stats):
+                   L.pgm_chase_latency, L.pgm_nw, L.pgm_dpx_rate,
+                   L.pgm_pair_stats):
             fn.restype = ctypes.c_int
         L.pgm_error_string.argtypes = [i]
         L.pgm_error_string.restype = ctypes.c_char_p

@@ -467,48 +467,124 @@ def pair_gaps_warp_model(g1, g2) -> int:
     return opens
 
 
-def nw_warp_model(s1, s2, scoring, go: int, ge: int, dim: int):
-    """One pair of kernel D2 as the warp runs it: strips of 32 rows, lane l
-    at step s on cell (y0 + l, s - l) from x = 1 on (its registers start as
-    the cell (y, 0)), the row above from lane l - 1 of the step before (lane
-    0 from the row buffer, which lane 31 refills 31 steps behind), two bits
-    a cell, then the walk back over the bits.  Returns (counts [dim, dim],
-    gaps)."""
+# lengths at the edges of D2's strips (32, 64 or 128 rows) and its chunks of
+# 16 steps (the first chunk a lane runs without a test starts at step 32)
+NW_STRIP_N2 = (1, 31, 63, 64, 65, 129)
+NW_STRIP_N1 = (0, 1, 31, 32, 47, 80)
+
+
+def nw_strip_edge_pairs(rng, copies: int):
+    """(s1, s2, l1, l2): every (n1, n2) of NW_STRIP_N1 x NW_STRIP_N2,
+    ``copies`` times, random codes < 21 (uint8)."""
+    l1, l2 = (np.tile(a.ravel(), copies).astype(np.int32)
+              for a in np.meshgrid(NW_STRIP_N1, NW_STRIP_N2))
+    return (rng.integers(0, 21, (len(l1), max(NW_STRIP_N1))).astype(np.uint8),
+            rng.integers(0, 21, (len(l2), max(NW_STRIP_N2))).astype(np.uint8),
+            l1, l2)
+
+
+def nw_strip_rows(n2: int, R: int):
+    """D2's strips of a pair of n2 rows at up to ``R`` rows a lane, as
+    (first row y0, rows a lane): strips of 32 R rows while more than 16 R
+    rows are left, then one of 64 rows (R = 4 only) or 32 rows for the
+    rest."""
+    strips, y0 = [], 1
+    while y0 <= n2:
+        left = n2 - y0 + 1
+        Rs = 4 if R >= 4 and left > 64 else 2 if R >= 2 and left > 32 else 1
+        strips.append((y0, Rs))
+        y0 += 32 * Rs
+    return strips
+
+
+def nw_strip_of(y: int, n2: int, R: int):
+    """(y0, rows a lane) of the strip of ``nw_strip_rows(n2, R)`` that
+    holds row y, in closed form as the kernel's walk finds it: the strips
+    of 32 R rows hold the first tb rows, the one after them the rest."""
+    S = 32 * R
+    tb = -(-(n2 - S // 2) // S) * S if n2 > S // 2 else 0
+    if y - 1 < tb:
+        return (y - 1) // S * S + 1, R
+    return tb + 1, 2 if R >= 4 and n2 - tb > 32 else 1
+
+
+def nw_warp_model(s1, s2, scoring, go: int, ge: int, dim: int, R: int = 1):
+    """One pair of kernel D2 as the warp runs it, with up to ``R`` rows a
+    lane: the strips of ``nw_strip_rows``; in a strip of Rs rows a lane, at
+    step s lane l takes column x = s - l for its Rs rows, top to bottom
+    (the first gets the row above from lane l - 1 of the step before, lane
+    0 from the row buffer that lane 31 refills for 0 <= x <= n1; the others
+    from the row before in registers); the score from the strip's int8
+    profile (one word a code and lane, byte r for row r); W from two DPX
+    maxima whose predicates are the backtrack bits (pd: W is the diagonal,
+    px: X >= Y); steps in chunks of 16, the steady chunks (every lane live)
+    without a test, the ramp-in (steps 0 .. 31) with x < 1 left as it was,
+    the ramp-out running the cells right of n1 on unchecked; a
+    word a row and chunk, keyed by step, stored at the chunk's end, a strip
+    from row y0 at word (y0 - 1) words laid out [chunk, row of the strip];
+    then the walk back, which finds (y, x) at step x + lane.  Returns
+    (counts [dim, dim], gaps)."""
     MINF = -10000
     n1, n2 = len(s1), len(s2)
+    words = (n1 + 47) // 16
+    bits = np.zeros(-(-n2 // (32 * R)) * 32 * R * words, np.int64)
     rowW = np.array([0] + [go + (x - 1) * ge for x in range(1, n1 + 1)])
     rowY = np.full(n1 + 1, MINF)
-    bits = np.zeros((n2, max(n1, 1)), np.int64)
     lanes = np.arange(32)
-    for y0 in range(1, n2 + 1, 32):
-        y = y0 + lanes
-        row = y <= n2
+    strips = nw_strip_rows(n2, R) if n1 else []
+    for y0, Rs in strips:
+        S = 32 * Rs
+        y = y0 + lanes[:, None] * Rs + np.arange(Rs)[None, :]   # [32, Rs]
+        yc = np.minimum(y, n2) - 1
+        sc8 = np.where((y <= n2)[..., None], scoring[np.asarray(s2)[yc]],
+                       0).astype(np.int64) & 0xff               # [32,Rs,T]
+        prof = (sc8 << (8 * np.arange(Rs))[None, :, None]).sum(1).T
         W = go + (y - 1) * ge
-        X = np.full(32, MINF)
+        X = np.full((32, Rs), MINF)
         Y = W.copy()
-        diagW = np.where(y == 1, 0, go + (y - 2) * ge)
-        for s in range(1, n1 + 32):
-            x = s - lanes
-            upW = np.concatenate([[0], W[:-1]])     # lane - 1, step before
-            upY = np.concatenate([[0], Y[:-1]])
-            xb = min(max(x[0], 0), n1)
-            upW[0], upY[0] = rowW[xb], rowY[xb]
-            live = row & (x >= 1) & (x <= n1)
-            for l in np.flatnonzero(live):
-                xl, yl = x[l], y[l]
-                Xn = max(X[l] + ge, W[l] + go)
-                Yn = max(upY[l] + ge, upW[l] + go)
-                d = diagW[l] + scoring[s2[yl - 1], s1[xl - 1]]
-                Wn = max(d, Xn, Yn)
-                bits[yl - 1, xl - 1] = int(Wn == d) | (int(Wn == Xn) << 1)
-                W[l], X[l], Y[l] = Wn, Xn, Yn
-            if live[31]:
-                rowW[x[31]], rowY[x[31]] = W[31], Y[31]
-            diagW = np.where((x >= 0) & (x <= n1), upW, diagW)
+        dg0 = np.zeros(32, np.int64)
+        base = (y0 - 1) * words
+        for k in range((n1 + 31) // 16 + 1):
+            steady = 16 * k >= 32 and 16 * k + 15 <= n1
+            acc = np.zeros((32, Rs), np.int64)
+            for s in range(16 * k, 16 * k + 16):
+                x = s - lanes
+                live = (x >= 1) & (x <= n1)
+                inr = (x >= 0) & (x <= n1)
+                assert not steady or live.all()
+                upW = np.roll(W[:, Rs - 1], 1)         # lane - 1's last row
+                upY = np.roll(Y[:, Rs - 1], 1)
+                upW[0] = rowW[min(max(x[0], 0), n1)]
+                upY[0] = rowY[min(max(x[0], 0), n1)]
+                p = prof[np.asarray(s1)[np.clip(x - 1, 0, n1 - 1)], lanes]
+                dg, dg0 = dg0, np.where(inr, upW, dg0)
+                for r in range(Rs):
+                    b = (p >> (8 * r)) & 0xff
+                    d = dg + np.where(b >= 128, b - 256, b)
+                    Xn = np.maximum(X[:, r] + ge, W[:, r] + go)
+                    Yn = np.maximum(upY + ge, upW + go)
+                    m = np.maximum(Xn, Yn)
+                    Wn = np.maximum(d, m)
+                    acc[:, r] |= ((d >= m).astype(np.int64)
+                                  | ((Xn >= Yn).astype(np.int64) << 1)) \
+                        << (2 * (s & 15))
+                    dg = W[:, r].copy()
+                    keep = ~live & (k < 2)     # the ramp-out runs on
+                    W[:, r] = np.where(keep, W[:, r], Wn)
+                    X[:, r] = np.where(keep, X[:, r], Xn)
+                    Y[:, r] = np.where(keep, Y[:, r], Yn)
+                    upW, upY = Wn, Yn
+                if inr[31]:
+                    rowW[x[31]], rowY[x[31]] = W[31, Rs - 1], Y[31, Rs - 1]
+            bits[base + k * S:base + (k + 1) * S] = acc.reshape(-1)
     counts = np.zeros((dim, dim), np.int64)
     y, x, gaps, go1, go2 = n2, n1, 0, False, False
     while y > 0 and x > 0:
-        b = bits[y - 1, x - 1]
+        y0, Rs = nw_strip_of(y, n2, R)
+        i = y - y0
+        s = x + i // Rs
+        wd = bits[(y0 - 1) * words + s // 16 * 32 * Rs + i]
+        b = (wd >> (2 * (s & 15))) & 3
         if b & 1:
             if s1[x - 1] < dim and s2[y - 1] < dim:
                 counts[s1[x - 1], s2[y - 1]] += 1

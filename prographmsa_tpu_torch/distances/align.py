@@ -120,13 +120,14 @@ def _nw_on_card(cmat, lens, pi, pj, scoring, go, ge, dim, device, chunk,
     cm = torch.from_numpy(cmat).to(dev)
     ln = torch.from_numpy(lens).to(dev)
     sc = torch.from_numpy(scoring).to(dev)
+    score_range = (int(scoring.min()), int(scoring.max()))
     pit = torch.from_numpy(pi.astype(np.int64)).to(dev)
     pjt = torch.from_numpy(pj.astype(np.int64)).to(dev)
     pending = None
     for s in range(0, len(pi), chunk):
         a, b = pit[s:s + chunk], pjt[s:s + chunk]
         out = _fetch_async(nw_counts(cm[a], cm[b], ln[a], ln[b], sc, go, ge,
-                                     dim))
+                                     dim, score_range=score_range))
         if pending is not None:
             finish(pending[0], *_fetched(pending[1]))
         pending = (slice(s, s + chunk), out)

@@ -52,8 +52,8 @@ import os
 ENGINES = ("torch", "device", "auto", "native")
 
 # D2 (csrc/nw.cu) fill + backtrack, cells per second of device time on
-# fam500's 124,750 pairs.
-NW_DEVICE_RATE = 2.82e11
+# fam500's 124,750 pairs (NVIDIA H100 80GB HBM3, 700.00 W).
+NW_DEVICE_RATE = 6.393e11
 # native.nw_counts_native, cells per second per host thread (fam100's
 # 4,950 pairs on all threads, divided by their number).
 NW_NATIVE_RATE = 2.288e8

@@ -82,6 +82,8 @@ def _nw_cases():
                   _load_scoring("codon"), *GAP_PARAMS["codon"], 61),
         "dna": (*_random_batch(rng, 5, 12, 38, 38, dtype=np.int32),
                 _load_scoring("dna"), *GAP_PARAMS["dna"], 4),
+        "strip_edges": (*checks.nw_strip_edge_pairs(rng, 1), asym, -10, -2,
+                        20),
     }
 
 
@@ -102,17 +104,35 @@ def test_nw_torch_matches_jax_and_native(case):
     assert counts.sum() > 0
 
 
-@pytest.mark.parametrize("case", ["asymmetric", "codon"])
-def test_nw_warp_model_matches_nw_torch(case):
-    """D2's schedule (strips of 32 rows, the row buffer lane 31 refills,
-    two bits a cell) on the CPU, pair by pair."""
+@pytest.mark.parametrize("R", [1, 2, 4])
+@pytest.mark.parametrize("case", ["asymmetric", "codon", "strip_edges"])
+def test_nw_warp_model_matches_nw_torch(case, R):
+    """D2's schedule (strips of 32 R rows, R rows a lane, the int8 score
+    profile, the DPX predicates as backtrack bits, words keyed by step, the
+    row buffer lane 31 refills) on the CPU, pair by pair."""
     s1, s2, l1, l2, sc, go, ge, dim = NW_CASES[case]
     counts, gaps = nw_torch(T(s1), T(s2), T(l1), T(l2), T(sc), go, ge, dim)
     for b in range(len(l1)):
         c, g = checks.nw_warp_model(s1[b, :l1[b]], s2[b, :l2[b]], sc, go, ge,
-                                    dim)
+                                    dim, R)
         assert np.array_equal(c, counts[b].numpy()), b
         assert g == int(gaps[b]), b
+
+
+@pytest.mark.parametrize("R", [1, 2, 4])
+def test_nw_strips_cover_the_rows_once_within_the_scratch(R):
+    """The strips D2 fills (32 R rows a lane while more than 16 R rows are
+    left, then one narrower strip) cover rows 1 .. n2 once, end inside the
+    pair's scratch rows, and the walk's closed form finds each row's."""
+    for n2 in range(0, 700):
+        strips = checks.nw_strip_rows(n2, R)
+        rows = [y for y0, Rs in strips for y in range(y0, y0 + 32 * Rs)]
+        assert rows == list(range(1, len(rows) + 1))
+        assert n2 <= len(rows) <= -(-n2 // (32 * R)) * 32 * R
+        assert all(Rs == R for _, Rs in strips[:-1])
+        for y0, Rs in strips:
+            for y in range(y0, min(y0 + 32 * Rs, n2 + 1)):
+                assert checks.nw_strip_of(y, n2, R) == (y0, Rs)
 
 
 def test_nw_counts_takes_the_plain_version_on_cpu():
@@ -123,20 +143,62 @@ def test_nw_counts_takes_the_plain_version_on_cpu():
 
 
 def test_plan_nw_sizes_launches_by_scratch():
-    p = plan_nw(124750, 21, 319, 319, 20)
-    assert p.warps == 4 and p.smem_bytes <= SMEM_MAX
-    assert p.pairs * bits_per_pair(319, 319) <= 1 << 29 < (
-        (p.pairs + 1) * bits_per_pair(319, 319))
-    assert plan_nw(8, 21, 2000, 1980, 20).pairs == 8
+    aa = (-4, 11)
+    p = plan_nw(124750, 21, 319, 319, 20, aa)
+    assert p.warps == 8 and p.smem_bytes <= SMEM_MAX and p.walk
+    assert p.rows == 4
+    bpp = bits_per_pair(319, 319, p.rows)
+    assert p.pairs * bpp <= 1 << 29 < (p.pairs + 1) * bpp
+    # few pairs: a warp a block, a block an SM
+    p = plan_nw(8, 21, 2000, 1980, 20, aa)
+    assert p.pairs == 8 and p.warps == 1
+    assert plan_nw(4 * 132, 21, 319, 319, 20, aa).warps == 4
     # codon table and long pairs: fewer warps per block, never too much
     # shared memory
-    p = plan_nw(40, 62, 6000, 6000, 61)
-    assert p.warps < 4 and p.smem_bytes <= SMEM_MAX
+    p = plan_nw(40000, 62, 6000, 6000, 61, aa)
+    assert p.warps == 2 and p.smem_bytes <= SMEM_MAX
     with pytest.raises(ValueError):
-        plan_nw(1, 21, 40000, 40000, 20)
+        plan_nw(1, 21, 40000, 40000, 20, aa)
+    with pytest.raises(ValueError):
+        plan_nw(1, 21, 300, 300, 20, aa, rows=3)
+    assert plan_nw(1, 21, 300, 300, 20, aa, rows=1, walk=False)[3:] == (
+        1, False)
     assert pairs_per_pass(319, 319, "cuda") == (
-        (1 << 29) // bits_per_pair(319, 319))
+        (1 << 29) // bits_per_pair(319, 319, 4))
     assert pairs_per_pass(319, 319, "cpu") >= 1
+
+
+def test_bits_per_pair_holds_every_strip_and_step():
+    """A pair's scratch is whole strips of 32 R rows by the steps 0 .. L1 +
+    31 at 16 a word, as csrc/nw.cu and checks.nw_warp_model lay it out."""
+    for L1, L2 in ((1, 1), (32, 31), (47, 64), (80, 129), (319, 319)):
+        for R in (1, 2, 4):
+            strips = -(-L2 // (32 * R))
+            steps = L1 + 32
+            assert bits_per_pair(L1, L2, R) == 4 * strips * 32 * R * (
+                -(-steps // 16))
+
+
+@pytest.mark.parametrize("table", ["codon", "dna", "aa", "asymmetric"])
+def test_plan_nw_takes_the_tables_in_int8(table):
+    sc = NW_CASES["asymmetric"][4] if table == "asymmetric" else \
+        _load_scoring(table)
+    rng = (int(sc.min()), int(sc.max()))
+    assert -128 <= rng[0] and rng[1] <= 127
+    assert plan_nw(10, sc.shape[0], 40, 40, 20, rng).rows == 4
+
+
+@pytest.mark.parametrize("lo,hi", [(-129, 11), (-4, 128), (-300, 300)])
+def test_plan_nw_raises_on_a_table_outside_int8(lo, hi):
+    with pytest.raises(ValueError, match="from %d to %d" % (lo, hi)):
+        plan_nw(10, 21, 40, 40, 20, (lo, hi))
+    sc = np.zeros((21, 21), np.int32)
+    sc[3, 4], sc[5, 6] = lo, hi
+    s1, s2, l1, l2 = _random_batch(np.random.default_rng(2), 21, 4, 9, 9)
+    # on the CPU the plain version takes any table; the range is the card's
+    nw_counts(T(s1), T(s2), T(l1), T(l2), T(sc), -10, -2, 20)
+    with pytest.raises(ValueError, match="int8"):
+        plan_nw(4, 21, 9, 9, 20, T(sc).aminmax())
 
 
 def _random_msa(rng, chars, n, L):
