@@ -42,11 +42,22 @@ read from shared memory (``chain_l2_ms``: from L2), both latencies measured
 on the card by pgm_chase_latency.  D2's operations are NW_CELL_OPS a cell
 at the rates each issues at: int32 at INT32_OPS_S, its DPX maxima at the
 rates pgm_dpx_rate measures in this run (nw_bound); ``bound_old_ms`` is
-its bound before DPX (NW_CELL_OPS_OLD int32 operations a cell).
+its bound before DPX (NW_CELL_OPS_OLD int32 operations a cell).  D1's
+operations (pair_stats_bound) are PAIR_WORD_OPS a 32-column word of a pair,
+PAIR_COUNT_OPS a counted column (the counts' sum) and PAIR_PACK_OPS a
+column of a packed row, population counts and bit scans at BITS_OPS_S;
+its bytes count the counts at their width; ``bound_old_ms`` is its first
+form's reckoning (int32 counts, PAIR_COL_OPS_OLD a pair-column).
+
+    python3 chip_smoke.py --parent DIR
+
+also times the D1 of the tree checked out at DIR (pair_stats_time.py, in a
+process of its own) before and after this tree's, on the same alignments.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import io
 import json
@@ -83,8 +94,9 @@ from prographmsa_tpu_torch.distances.align import (GAP_PARAMS, _load_scoring,
 from prographmsa_tpu_torch.distances.angle import kmer_counts
 from prographmsa_tpu_torch.distances.nw_cuda import nw_counts, nw_torch, plan_nw
 from prographmsa_tpu_torch.distances.prealigned import _pair_stats_batch_host
-from prographmsa_tpu_torch.distances.prealigned_cuda import (pair_stats,
-                                                             pair_stats_torch)
+from prographmsa_tpu_torch.distances.prealigned_cuda import (
+    count_dtype, pair_pack, pair_pack_torch, pair_stats, pair_stats_torch,
+    words)
 from prographmsa_tpu_torch.io.fasta import read_fasta
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -103,11 +115,13 @@ KERNELS = {
               "prographmsa_tpu/align/graph_dp_pallas.py:887"),
     "nw": ("prographmsa_tpu_torch/csrc/nw.cu",
            "prographmsa_tpu/distances/nw_device.py:38"),
+    "pair_pack": ("prographmsa_tpu_torch/csrc/pair_stats.cu",
+                  "prographmsa_tpu/distances/prealigned_device.py:98"),
     "pair_stats": ("prographmsa_tpu_torch/csrc/pair_stats.cu",
                    "prographmsa_tpu/distances/prealigned_device.py:45"),
 }
 DP_KERNELS = ("s_prep", "s", "fill", "chase")    # the graph-pair DP batch
-DIST_KERNELS = ("nw", "pair_stats")              # the guide-tree distances
+DIST_KERNELS = ("nw", "pair_pack", "pair_stats")  # the guide-tree distances
 max_err = {k: 0.0 for k in KERNELS}
 detail = []
 CALL_REPS = 200               # calls per call-time reading of K1
@@ -119,6 +133,9 @@ F32_INSTR_S = F32_FLOPS / 2    # the same lanes issuing one operation each:
                                # roundings, none is fused
 INT32_OPS_S = F32_INSTR_S / 2  # an H100 SM has 64 int32 lanes beside its 128
                                # float32 lanes (NVIDIA's Hopper white paper)
+BITS_OPS_S = INT32_OPS_S / 4   # population count, bit reverse, find leading
+                               # one: 16 a clock an SM (the CUDA C++
+                               # programming guide's throughput table, 9.0)
 # A correctly rounded float32 division: the reciprocal, a Newton step on it
 # (2), the quotient, two residual corrections (2 each).
 DIV_OPS = 8
@@ -141,13 +158,27 @@ NW_CELL_OPS = {"int32": {"diagonal: sum": 1, "W + go: sum": 1,
 # sums and a max each; the diagonal's sum; W: two max; two compares for the
 # bits): bound_old_ms.
 NW_CELL_OPS_OLD = 11
-# D1's int32 operations per pair and column, term by term.
-PAIR_COL_OPS = {"both rows ungapped: two tests, and": 3,
-                "both values in range: two compares, and": 3,
-                "histogram index: multiply-add": 1, "histogram: add": 1,
-                "transparent: and, not": 2,
-                "openings: two and-nots against the last state": 4,
-                "last state: two selects": 2}
+# D1's fewest operations, by the rate each issues at: per 32-column word
+# of a pair (the gap scan of both sides and the counted columns' word), per
+# counted column (the bit walk into the histogram) and per column of a row
+# the pack turns into bit planes.
+PAIR_WORD_OPS = {"int32": {"T, X, Y: and, two and-nots": 3, "Ki & Kj": 1,
+                           "a, per side: shift, or-and": 4,
+                           "E, per side: sum, or-and-not": 4,
+                           "openings, per side: shift, and-not-or, sum": 6,
+                           "carry out, per side: shift": 2},
+                 "bits": {"openings, per side: population count": 2}}
+PAIR_COUNT_OPS = {"int32": {"clear the bit: sum, and": 2, "column: sum": 1,
+                            "histogram index: multiply-add": 1,
+                            "histogram: add": 1},
+                  "bits": {"find the bit: reverse, find leading one": 2}}
+PAIR_PACK_OPS = {"int32": {"gapped: compare, or beyond L": 2,
+                           "counted: unsigned compare, and": 2,
+                           "value or 0: select": 1, "two ballots": 2},
+                 "bits": {}}
+# The count D1's bound took in its first form, int32 operations per pair
+# and column (bound_old_ms, the counts in int32).
+PAIR_COL_OPS_OLD = 16
 
 
 def say(phase, t0, **kv):
@@ -166,8 +197,9 @@ def diff(kernel, a, b, name):
         ok = torch.equal(a.view(torch.int32), b.view(torch.int32))
         err = (a.double() - b.double()).abs().nan_to_num(float("inf"))
     else:
+        a, b = a.long(), b.long()
         ok = torch.equal(a, b)
-        err = (a.long() - b.long()).abs().double()
+        err = (a - b).abs().double()
     m = float(err.max()) if err.numel() else 0.0
     max_err[kernel] = max(max_err[kernel], 0.0 if ok else m)
     if not ok:
@@ -1288,56 +1320,204 @@ def masked_onehot(vals, gapm, rows, cb, chunk=8192):
     return out
 
 
-def pair_stats_bound(N, L, P, cb):
-    by = 5 * N * L + 8 * P + 4 * P * cb * cb + 4 * P
-    op = float(P) * L * sum(PAIR_COL_OPS.values())
-    tb, to = by / HBM_BYTES_S * 1e3, op / INT32_OPS_S * 1e3
+def ops_ms(ops):
+    """Milliseconds for ``ops`` ({"int32": n, "bits": n} lane operations)
+    at the rate each issues at, or at one issue a lane and clock for all
+    of them, whichever is longer."""
+    return max(ops["int32"] / INT32_OPS_S, ops["bits"] / BITS_OPS_S,
+               (ops["int32"] + ops["bits"]) / F32_INSTR_S) * 1e3
+
+
+def bound_of(by, ops):
+    tb, to = by / HBM_BYTES_S * 1e3, ops_ms(ops)
     return max(tb, to), "bytes" if tb >= to else "operations"
 
 
-def phase_pair_stats(dev, msas):
-    """D1 against pair_stats_torch and the host batch path
-    (_pair_stats_batch_host), bit for bit, on every pair of each alignment,
-    timed beside one masked one-hot torch.bmm (the counts only)."""
+def pair_pack_bound(N, L):
+    """(bound_ms, bound_by) of the pack: the alignment read once (int32
+    values, byte gap flags), the bit planes and the value bytes written
+    once; PAIR_PACK_OPS a column of every padded row."""
+    W = words(L)
+    return bound_of(5 * N * L + 40 * N * W,
+                    {k: N * 32 * W * sum(v.values())
+                     for k, v in PAIR_PACK_OPS.items()})
+
+
+def pair_stats_bound(N, L, P, cb, counted, width):
+    """(bound_ms, bound_by, bound_old_ms) of D1 as the main path calls it
+    (pack and statistics): the alignment and the pair lists read once,
+    the counts (``width`` bytes each) and the gaps written once;
+    PAIR_WORD_OPS a word of every pair, PAIR_COUNT_OPS a counted column
+    (``counted``, the counts' sum in this run), PAIR_PACK_OPS a column of
+    every padded row.  bound_old_ms: the first form's reckoning, int32
+    counts and PAIR_COL_OPS_OLD a pair-column."""
+    W = words(L)
+    ops = {k: P * W * sum(PAIR_WORD_OPS[k].values())
+           + counted * sum(PAIR_COUNT_OPS[k].values())
+           + N * 32 * W * sum(PAIR_PACK_OPS[k].values())
+           for k in ("int32", "bits")}
+    bound, by = bound_of(5 * N * L + 8 * P + width * P * cb * cb + 4 * P,
+                         ops)
+    old = max((5 * N * L + 8 * P + 4 * P * cb * cb + 4 * P) / HBM_BYTES_S,
+              float(P) * L * PAIR_COL_OPS_OLD / INT32_OPS_S) * 1e3
+    return bound, by, old
+
+
+def pair_stats_inputs():
+    """The synthetic alignments of checks.pair_stats_msa (every alphabet x
+    mask, 8 rows of 2061 columns, and DNA counted to 5 values), and one of
+    2^16 + 4465 columns at 8 rows, whose counts are int32: name -> (vals,
+    gapm, pi, pj, cb)."""
+    out = {}
+    for alpha in checks.PAIR_ALPHABETS:
+        for mask in checks.PAIR_MASKS:
+            out["%s_%s" % (alpha, mask)] = checks.pair_stats_msa(alpha, mask)
+    out["long_8x70001"] = checks.pair_stats_msa("aa", "runs_across_words",
+                                                L=70001)
+    # a histogram of 25 counts, a number of bytes no multiple of 4
+    out["dna_cb5"] = checks.pair_stats_msa("dna", "x_residues")[:2] + (5,)
+    res = {}
+    for name, (vals, gapm, cb) in out.items():
+        pi, pj = (a.astype(np.int32) for a in np.triu_indices(len(vals), 1))
+        res[name] = (vals, gapm, pi, pj, cb)
+    return res
+
+
+def pair_stats_check(name, vals, gapm, pi, pj, cb, dev):
+    """D1 (pack and statistics, the counts under both widths where the
+    alignment allows 16 bits) against pair_pack_torch, pair_stats_torch
+    and the host batch, bit for bit.  Returns the device tensors, the
+    packed rows, the plain result and the host's seconds."""
+    N, L = vals.shape
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (vals, gapm, pi, pj)]
+    packed = pair_pack(args[0], args[1], cb)
+    torch.cuda.synchronize()
+    for k, x, y in zip("GKC", packed, pair_pack_torch(args[0], args[1], cb)):
+        diff("pair_pack", x, y, "%s %s" % (name, k))
+    ct, gt = pair_stats_torch(*args, cb)
+    t1 = time.perf_counter()
+    ch, gh = _pair_stats_batch_host(vals.astype(np.int64), gapm.astype(bool),
+                                    pi.astype(np.intp), pj.astype(np.intp),
+                                    cb, cb)
+    host_s = time.perf_counter() - t1
+    ch, gh = torch.from_numpy(ch), torch.from_numpy(gh)
+    types = (torch.int32,) + ((torch.uint16,) if L < 1 << 16 else ())
+    for ty in types:
+        c, g = pair_stats(*args, cb, count_type=ty)
+        torch.cuda.synchronize()
+        if c.dtype != ty:
+            raise AssertionError("%s: D1 gave %s counts" % (name, c.dtype))
+        what = "%s %s" % (name, str(ty).split(".")[-1])
+        diff("pair_stats", c, ct, what + " counts")
+        diff("pair_stats", g, gt, what + " gaps")
+        diff("pair_stats", c.cpu(), ch, what + " counts vs host")
+        diff("pair_stats", g.cpu(), gh, what + " gaps vs host")
+    if ct.dtype != count_dtype(L):
+        raise AssertionError("%s: %s counts from the plain version"
+                             % (name, ct.dtype))
+    return args, packed, (ct, gt), host_s
+
+
+def lane_loads(K, pi, pj, W):
+    """D1's counted columns per lane (checks.pair_lane_loads): the mean
+    over pairs of a busy lane's mean and of the fullest lane, the largest
+    lane of any pair, and the mean over pairs of the bits the lanes walk
+    when they take each word of their runs in step."""
+    loads, trips = checks.pair_lane_loads(K.cpu().numpy().view(np.uint32),
+                                          pi, pj)
+    busy = -(-W // -(-W // 32)) if W else 1
+    return {"lane_mean": float(loads.sum(1).mean() / busy),
+            "lane_max_mean": float(loads.max(1).mean()),
+            "lane_max": int(loads.max()),
+            "word_steps_mean": float(trips.mean())}
+
+
+def parent_times(parent, inputs):
+    """D1's device ms of the tree at ``parent`` on ``inputs`` (name ->
+    (vals, gapm, pi, pj, cb)), from pair_stats_time.py in its own
+    process."""
+    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+        files = []
+        for name, (vals, gapm, pi, pj, cb) in inputs.items():
+            f = os.path.join(tmp, name + ".npz")
+            np.savez(f, vals=vals, gapm=gapm, pi=pi, pj=pj, cb=cb)
+            files.append("%s=%s" % (name, f))
+        out = subprocess.run(
+            [sys.executable, os.path.join(REPO, "pair_stats_time.py"),
+             parent, *files], capture_output=True, text=True, timeout=900)
+    if out.returncode != 0:
+        raise AssertionError("pair_stats_time.py on %s failed:\n%s"
+                             % (parent, out.stderr[-3000:]))
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def phase_pair_stats(dev, msas, parent=None):
+    """D1 (the pack and the statistics) against pair_pack_torch,
+    pair_stats_torch and the host batch path (_pair_stats_batch_host), bit
+    for bit, on every pair of each alignment of ``msas`` and of
+    pair_stats_inputs(), its counts in 16 and in 32 bits.  On ``msas``:
+    the call and device times of D1, of the pack and of the statistics
+    alone (in 16 and 32 bits, and with no counted column: the gap scan),
+    the counted share of pair-columns, how the counted columns fall on the
+    lanes, the bound beside the first form's, one masked one-hot torch.bmm
+    (the counts only), and with ``parent`` (a checkout of an earlier tree)
+    that tree's D1 timed before and after this one's."""
     t0 = time.perf_counter()
     cb = 20
-    res = {}
-    for name, path in msas:
-        vals, gapm, pi, pj = msa_stats_inputs(path)
+    checked = {}
+    for name, inp in pair_stats_inputs().items():
+        pair_stats_check(name, *inp, dev)
+        checked[name] = "%dx%d" % inp[0].shape
+    inputs = {name: (*msa_stats_inputs(path), cb) for name, path in msas}
+    before = parent_times(parent, inputs) if parent else {}
+    res, res_pack = {}, {}
+    for name, (vals, gapm, pi, pj, _) in inputs.items():
         N, L = vals.shape
-        P = len(pi)
-        args = [torch.from_numpy(a).to(dev) for a in (vals, gapm, pi, pj)]
-        c, g = pair_stats(*args, cb)
-        torch.cuda.synchronize()
-        (p0, p1), (ct, gt) = time_plain(lambda: pair_stats_torch(*args, cb),
-                                        1)
-        diff("pair_stats", c, ct, name + " counts")
-        diff("pair_stats", g, gt, name + " gaps")
-        t1 = time.perf_counter()
-        ch, gh = _pair_stats_batch_host(vals.astype(np.int64),
-                                        gapm.astype(bool), pi.astype(np.intp),
-                                        pj.astype(np.intp), cb, cb)
-        host_s = time.perf_counter() - t1
-        diff("pair_stats", c.long().cpu(), torch.from_numpy(ch).long(),
-             name + " counts vs host")
-        diff("pair_stats", g.long().cpu(), torch.from_numpy(gh).long(),
-             name + " gaps vs host")
+        P, W = len(pi), words(L)
+        args, packed, (ct, _), host_s = pair_stats_check(
+            name, vals, gapm, pi, pj, cb, dev)
+        (p0, p1), _ = time_plain(lambda: pair_stats_torch(*args, cb), 1)
         kern = lambda: pair_stats(*args, cb)
+        dev_ms = lambda fn: min(device_time(fn, 20) for _ in range(2))
+        nocount = (packed[0], torch.zeros_like(packed[1]), packed[2])
+        counted = int(ct.long().sum())
         r = {"rows": N, "columns": L, "pairs": P, "host_s": host_s,
              "plain_ms": min(p0, p1),
              "ms": min(time_cuda(kern, 20) for _ in range(2)),
-             "device_ms": min(device_time(kern, 20) for _ in range(2))}
-        r["bound_ms"], r["bound_by"] = pair_stats_bound(N, L, P, cb)
+             "device_ms": dev_ms(kern),
+             "pack_device_ms": dev_ms(lambda: pair_pack(*args[:2], cb)),
+             "stats_device_ms": dev_ms(lambda: pair_stats(
+                 *args, cb, packed=packed)),
+             "stats_int32_device_ms": dev_ms(lambda: pair_stats(
+                 *args, cb, packed=packed, count_type=torch.int32)),
+             "stats_gap_scan_device_ms": dev_ms(lambda: pair_stats(
+                 *args, cb, packed=nocount)),
+             "counted_share": counted / (P * L),
+             **lane_loads(packed[1], pi, pj, W)}
+        r["bound_ms"], r["bound_by"], r["bound_old_ms"] = pair_stats_bound(
+            N, L, P, cb, counted, ct.element_size())
         oh1 = masked_onehot(args[0], args[1], args[2], cb).transpose(1, 2)
         oh2 = masked_onehot(args[0], args[1], args[3], cb)
         lib = lambda: torch.bmm(oh1, oh2)
-        if not torch.equal(lib().to(torch.int32), c):
+        if not torch.equal(lib().long(), ct.long()):
             raise AssertionError("%s: the masked one-hot bmm differs from "
                                  "D1's counts" % name)
         r["library_ms"] = min(time_cuda(lib, 5) for _ in range(2))
-        r["library_device_ms"] = min(device_time(lib, 5) for _ in range(2))
+        r["library_device_ms"] = dev_ms(lambda: torch.bmm(oh1, oh2))
         del oh1, oh2
+        pack = lambda: pair_pack(*args[:2], cb)
+        (q0, q1), _ = time_plain(lambda: pair_pack_torch(*args[:2], cb), 3)
+        rp = res_pack[name] = {
+            "plain_ms": min(q0, q1),
+            "ms": min(time_cuda(pack, 20) for _ in range(2)),
+            "device_ms": r["pack_device_ms"]}
+        rp["bound_ms"], rp["bound_by"] = pair_pack_bound(N, L)
         res[name] = r
+    if parent:
+        after = parent_times(parent, inputs)
+        for name, r in res.items():
+            r["parent_device_ms"] = [before[name], after[name]]
     big = res[msas[-1][0]]
     work = big["pairs"] * big["columns"]
     rates = {"PAIR_STATS_DEVICE_RATE": work / (big["device_ms"] / 1e3),
@@ -1345,9 +1525,11 @@ def phase_pair_stats(dev, msas):
     cj = lambda d: json.dumps({k: round(v, 5) if isinstance(v, float) else v
                                for k, v in d.items()}, separators=(",", ":"))
     say("pair_stats", t0, vs_plain="bit-identical", vs_host="bit-identical",
+        widths="uint16,int32", checked=cj(checked),
         **{k: cj(r) for k, r in res.items()},
+        **{"pack_" + k: cj(r) for k, r in res_pack.items()},
         **{k: "%.4g" % v for k, v in rates.items()})
-    return res, rates
+    return res, res_pack, rates
 
 
 def phase_angle(dev):
@@ -1424,7 +1606,10 @@ def dist_row(k, launches, res, main_shape):
         sfx = "" if shape == main_shape else "_" + shape
         for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                     "bound_old_ms", "rows", "library_ms",
-                    "library_device_ms"):
+                    "library_device_ms", "pack_device_ms", "stats_device_ms",
+                    "stats_int32_device_ms", "stats_gap_scan_device_ms",
+                    "counted_share", "lane_mean", "lane_max_mean",
+                    "word_steps_mean", "parent_device_ms"):
             if key in r:
                 row[key + sfx] = r[key]
         if main_shape == shape:
@@ -1433,6 +1618,13 @@ def dist_row(k, launches, res, main_shape):
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="a checkout of an earlier tree whose "
+                    "D1 phase pair_stats times beside this one's")
+    parent = ap.parse_args().parent
+    if parent and not os.path.exists(os.path.join(parent, "prographmsa_tpu_"
+                                                  "torch")):
+        raise SystemExit("chip_smoke: --parent %s holds no port" % parent)
     name, smi = phase_device()
     dev = torch.device("cuda")
     phase_build()
@@ -1444,9 +1636,9 @@ def main():
         phase_walls(tmp)
         launches500, root, sum500, sum500_dev = phase_levels(dev, tmp)
         res_nw, rates = phase_nw(dev)
-        res_ps, rates_ps = phase_pair_stats(dev, (
+        res_ps, res_pack, rates_ps = phase_pair_stats(dev, (
             ("c2_fam100", GOLD + "/c2_fam100.fasta"),
-            ("fam500_i0", os.path.join(tmp, "l500.fasta"))))
+            ("fam500_i0", os.path.join(tmp, "l500.fasta"))), parent)
     phase_angle(dev)
     res, floors = phase_times(dev, largest, root)
     phase_rates(largest, res["fam100_level"]["native_ms"],
@@ -1495,6 +1687,7 @@ def main():
         kern.append(row)
     # the distance kernels: launches from the free-tree run (c2_fam100)
     kern.append(dist_row("nw", launches_c2, res_nw, "fam100"))
+    kern.append(dist_row("pair_pack", launches_c2, res_pack, "c2_fam100"))
     kern.append(dist_row("pair_stats", launches_c2, res_ps, "c2_fam100"))
     print(json.dumps({"kernels": kern}))
     print(smi)

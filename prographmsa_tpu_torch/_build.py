@@ -32,7 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
-KERNELS = ("s_prep", "s", "fill", "chase", "nw", "pair_stats")
+KERNELS = ("s_prep", "s", "fill", "chase", "nw", "pair_pack", "pair_stats")
 LAUNCHES = {k: 0 for k in KERNELS}
 
 _lock = threading.Lock()
@@ -125,11 +125,12 @@ def lib() -> ctypes.CDLL:
         L.pgm_chase_latency.argtypes = [p, i, i, i, p, p]
         L.pgm_nw.argtypes = [p] * 5 + [i] * 12 + [p] * 4
         L.pgm_dpx_rate.argtypes = [i, i, i, p, p]
-        L.pgm_pair_stats.argtypes = [p] * 4 + [i] * 4 + [p] * 3
+        L.pgm_pair_pack.argtypes = [p] * 2 + [i] * 3 + [p] * 4
+        L.pgm_pair_stats.argtypes = [p] * 5 + [i] * 5 + [p] * 3
         for fn in (L.pgm_s_prep, L.pgm_s, L.pgm_exact_s, L.pgm_q_check,
                    L.pgm_empty, L.pgm_fill, L.pgm_chase,
                    L.pgm_chase_latency, L.pgm_nw, L.pgm_dpx_rate,
-                   L.pgm_pair_stats):
+                   L.pgm_pair_pack, L.pgm_pair_stats):
             fn.restype = ctypes.c_int
         L.pgm_error_string.argtypes = [i]
         L.pgm_error_string.restype = ctypes.c_char_p

@@ -438,33 +438,135 @@ def s_tile_model(plan, dim: int, n1max: int, n2max: int, n1, n2, S=None):
     return owners, kinds, Sd
 
 
-def pair_gaps_warp_model(g1, g2) -> int:
-    """The gap openings of one pair of alignment rows (bool gap masks) as
-    kernel D1 counts them: 32 columns a step, one lane a column, three
-    ballots (non-transparent, gapped in row 1, gapped in row 2) and the
-    carry of the last non-transparent column's gap sides."""
-    L = len(g1)
-    lanes = np.arange(32)
-    last1 = last2 = False
-    opens = 0
-    for c0 in range(0, L, 32):
-        c = c0 + lanes
-        inr = c < L
-        a = np.where(inr, g1[np.minimum(c, L - 1)], True)
-        b = np.where(inr, g2[np.minimum(c, L - 1)], True)
-        nt = ~(a & b)
-        m1, m2 = nt & a, nt & b
-        p1 = np.full(32, last1)
-        p2 = np.full(32, last2)
+_M32 = 0xFFFFFFFF
+
+
+def pair_pack_model(vals, gapm, cb):
+    """Kernel D1's pack of an alignment (vals [N, L] int, gapm [N, L]):
+    G, K [N, W] uint32 (bit b of word q is column 32 q + b: gapped, and
+    counted, i.e. not gapped with the value in [0, cb); padding columns
+    >= L are gapped) and C [N, 32 W] uint8 (the value where counted)."""
+    N, L = vals.shape
+    W = -(-L // 32)
+    g = np.ones((N, 32 * W), bool)
+    g[:, :L] = np.asarray(gapm) != 0
+    v = np.zeros((N, 32 * W), np.int64)
+    v[:, :L] = vals
+    k = ~g & (v >= 0) & (v < cb)
+    bit = np.uint64(1) << np.arange(32, dtype=np.uint64)
+
+    def words(b):
+        return (b.reshape(N, W, 32) * bit).sum(-1).astype(np.uint32)
+
+    return words(g), words(k), np.where(k, v, 0).astype(np.uint8)
+
+
+def _side_opens(s, t, cin):
+    """One side's gap openings over a word of kernel D1 (the carry in and
+    out are the state "the last non-transparent column was gapped on this
+    side"): (openings, carry out)."""
+    a = ((s << 1) | cin) & t & _M32
+    e = (s | (t & ~(t + a))) & _M32
+    return bin(s & ~((e << 1) | cin) & _M32).count("1"), e >> 31
+
+
+def pair_stats_word_model(G, K, C, pi, pj, cb):
+    """Kernel D1's statistics launch on packed rows (pair_pack_model), as
+    its warp runs a pair: lane l owns words [l R, l R + R), R = ceil(W /
+    32); each lane scans its words with carry in 0, noting whether its run
+    has a non-transparent column and the sides of the first one, and walks
+    the set bits of Ki & Kj into the histogram; three ballots give each
+    lane the carry out of the nearest lower lane with a non-transparent
+    column, which corrects the first column's opening.  Returns counts
+    [P, cb, cb] and gaps [P], int64."""
+    P, W = len(pi), G.shape[1]
+    run = -(-W // 32)
+    counts = np.zeros((P, cb, cb), np.int64)
+    gaps = np.zeros(P, np.int64)
+    for p in range(P):
+        i, j = int(pi[p]), int(pj[p])
+        lanes = []
         for lane in range(32):
-            below = np.flatnonzero(nt[:lane])
-            if below.size:
-                p1[lane], p2[lane] = m1[below[-1]], m2[below[-1]]
-        opens += int((nt & a & ~p1).sum() + (nt & b & ~p2).sum())
-        if nt.any():
-            j = np.flatnonzero(nt)[-1]
-            last1, last2 = bool(m1[j]), bool(m2[j])
-    return opens
+            cx = cy = fx = fy = opens = 0
+            seen = False
+            for q in range(lane * run, min(lane * run + run, W)):
+                gi, gj = int(G[i, q]), int(G[j, q])
+                t, x, y = gi & gj, gi & ~gj & _M32, gj & ~gi & _M32
+                ox, cx = _side_opens(x, t, cx)
+                oy, cy = _side_opens(y, t, cy)
+                opens += ox + oy
+                nt = ~t & _M32
+                low = nt & -nt
+                if not seen:
+                    fx, fy, seen = x & low, y & low, nt != 0
+                m = int(K[i, q]) & int(K[j, q])
+                while m:
+                    c = q * 32 + (m & -m).bit_length() - 1
+                    m &= m - 1
+                    counts[p, C[i, c], C[j, c]] += 1
+            lanes.append((seen, cx, cy, fx, fy, opens))
+        ballot = [sum(int(bool(r[f])) << lane for lane, r in enumerate(lanes))
+                  for f in range(3)]
+        for lane, (_, _, _, fx, fy, opens) in enumerate(lanes):
+            below = ballot[0] & ((1 << lane) - 1)
+            if below:
+                s = below.bit_length() - 1
+                opens -= int((ballot[1] >> s) & 1 and fx != 0)
+                opens -= int((ballot[2] >> s) & 1 and fy != 0)
+            gaps[p] += opens
+    return counts, gaps
+
+
+def pair_lane_loads(K, pi, pj):
+    """Counted columns (set bits of Ki & Kj) a lane of kernel D1 walks, per
+    pair and lane under its runs of ceil(W / 32) words: [P, 32] int64, and
+    per pair the bits of the lanes' fullest word summed over the words of a
+    run (what a warp pays when the lanes walk each word in step):
+    [P] int64."""
+    P, W = len(pi), K.shape[1]
+    run = -(-W // 32)
+    m = np.zeros((P, 32 * run), np.uint32)
+    m[:, :W] = K[pi] & K[pj]
+    bits = np.bitwise_count(m).astype(np.int64).reshape(P, 32, run)
+    return bits.sum(2), bits.max(1).sum(1)
+
+
+# the synthetic alignments D1 is held on: values in [0, hi), of which those
+# >= cb are never counted (the AA X, DNA N, the codons beyond 20)
+PAIR_ALPHABETS = {"aa": (21, 20), "dna": (5, 4), "codon": (61, 20)}
+PAIR_MASKS = ("runs_across_words", "lane_boundary", "transparent_lanes",
+              "all_gap_rows", "x_residues")
+
+
+def pair_stats_msa(alpha, mask, seed=0, N=8, L=2061):
+    """(vals [N, L] int32, gapm [N, L] uint8, cb) of one synthetic
+    alignment for kernel D1.  Lanes own 96 columns at L = 2061 (W = 65, 3
+    words a lane, 22 lanes busy).  Masks: columns gapped in every row
+    (transparent) over runs that cross 1, 2 and 3 word boundaries, or a
+    lane boundary, or the whole of lane 1 and of lanes 3-4 (the carry
+    passes through them); around each run every third row is gapped just
+    before and just after it, so the carry decides an opening; all-gap
+    rows; residues never counted (>= cb, and -1).  Gapped columns hold
+    random values too."""
+    hi, cb = PAIR_ALPHABETS[alpha]
+    rng = np.random.default_rng([seed, list(PAIR_ALPHABETS).index(alpha),
+                                 PAIR_MASKS.index(mask)])
+    top = hi if alpha == "codon" or mask == "x_residues" else cb
+    vals = rng.integers(0, top, (N, L))
+    gap = rng.random((N, L)) < 0.3
+    runs = {"runs_across_words": [(20, 50), (250, 300), (90, 170)],
+            "lane_boundary": [(80, 110), (180, 200), (1900, 1950)],
+            "transparent_lanes": [(96, 192), (288, 480)]}.get(mask, [])
+    for a, b in runs:
+        gap[:, a:b] = True
+        for c in (a - 1, b):
+            gap[:, c] = np.arange(N) % 3 == 0
+    if mask == "all_gap_rows":
+        gap[1] = gap[4] = True
+    if mask == "x_residues":
+        vals[rng.random((N, L)) < 0.3] = hi
+        vals[rng.random((N, L)) < 0.05] = -1
+    return vals.astype(np.int32), gap.astype(np.uint8), cb
 
 
 # lengths at the edges of D2's strips (32, 64 or 128 rows) and its chunks of

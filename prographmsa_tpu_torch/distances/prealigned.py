@@ -93,7 +93,9 @@ def _pair_stats_batch_host(vmat, gmat, pi, pj, dim, count_bound):
 
 
 def _pair_stats_on_card(vmat, gmat, pi, pj, dim, count_bound, device):
-    """D1 on ``device``: counts [P, dim, dim] int64 and gaps [P] int64."""
+    """D1 on ``device``: counts [P, dim, dim] int64 and gaps [P] int64.
+    The card's counts (uint16 below 2^16 columns) go straight into the
+    int64 array."""
     import torch
 
     from .prealigned_cuda import pair_stats

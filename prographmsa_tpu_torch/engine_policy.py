@@ -57,9 +57,9 @@ NW_DEVICE_RATE = 6.393e11
 # native.nw_counts_native, cells per second per host thread (fam100's
 # 4,950 pairs on all threads, divided by their number).
 NW_NATIVE_RATE = 2.288e8
-# D1 (csrc/pair_stats.cu), pair-columns per second of device time on the
-# fam500 -i 0 alignment's 124,750 pairs.
-PAIR_STATS_DEVICE_RATE = 2.786e11
+# D1 (csrc/pair_stats.cu, pack and statistics), pair-columns per second of
+# device time on the fam500 -i 0 alignment's 124,750 pairs.
+PAIR_STATS_DEVICE_RATE = 2.162e12
 # prealigned._pair_stats_batch_host, pair-columns per second on the same.
 PAIR_STATS_HOST_RATE = 1.053e7
 # The native graph-pair alignment (S, fill, backtrack) of one thread, cells
@@ -136,9 +136,9 @@ def use_device_nw(engine: str, n_pairs: int = 0, L: int = 0,
 def use_device_prealigned(engine: str, n_pairs: int = 0, L: int = 0,
                           count_bound: int = 20) -> bool:
     """Prealigned pair statistics on the card (D1)?  Under ``auto``: card
-    cost = two round trips (upload, fetch) + the counts' fetch + the
-    pair-columns over D1's rate; host cost = the pair-columns over the
-    host batch's rate."""
+    cost = two round trips (upload, fetch) + the counts' fetch (16 bits a
+    count below 2^16 columns, else 32) + the pair-columns over D1's rate;
+    host cost = the pair-columns over the host batch's rate."""
     if check_engine(engine) in ("torch", "device"):
         return True
     if engine == "native":
@@ -146,7 +146,8 @@ def use_device_prealigned(engine: str, n_pairs: int = 0, L: int = 0,
     if not n_pairs:
         return True
     c = calibration()
-    fetch_mb = n_pairs * (count_bound * count_bound * 4.0 + 4.0) / 1e6
+    width = 2.0 if L < 1 << 16 else 4.0      # prealigned_cuda.count_dtype
+    fetch_mb = n_pairs * (count_bound * count_bound * width + 4.0) / 1e6
     work = float(n_pairs) * L
     dev = (2.0 * c["roundtrip_s"] + fetch_mb / c["fetch_mbps"]
            + work / PAIR_STATS_DEVICE_RATE)

@@ -2,8 +2,8 @@
 same numpy-seeded inputs, with JAX on the CPU: NW counts (kernel D2's plain
 version ``nw_torch``), the prealigned pair statistics (D1's plain version
 ``pair_stats_torch``), the angle distances' Gram on the card's path and the
-CS mix.  The numpy models of D1's warp-wide gap scan and of D2's strip
-wavefront hold the kernels' own schedules against the host.  On the card
+CS mix.  The numpy models of D1's pack and word-parallel scan and of D2's
+strip wavefront hold the kernels' own schedules against the host.  On the card
 chip_smoke.py holds D1 and D2 against the same plain versions.
 """
 
@@ -32,8 +32,8 @@ from prographmsa_tpu_torch.distances.nw_cuda import (SMEM_MAX, bits_per_pair,
                                                      pairs_per_pass, plan_nw)
 from prographmsa_tpu_torch.distances.prealigned import (_pair_stats,
                                                         _pair_stats_batch_host)
-from prographmsa_tpu_torch.distances.prealigned_cuda import (pair_stats,
-                                                             pair_stats_torch)
+from prographmsa_tpu_torch.distances.prealigned_cuda import (
+    count_dtype, pair_pack, pair_pack_torch, pair_stats, pair_stats_torch)
 from prographmsa_tpu_torch.io.fasta import read_fasta
 from prographmsa_tpu_torch.models.factory import get_default_model_factory
 
@@ -239,13 +239,15 @@ def test_pair_stats_torch_matches_jax_and_host(alpha, cb):
     assert gaps.sum() > 0 and counts.sum() > 0
 
 
-@pytest.mark.parametrize("L", [1, 31, 32, 33, 64, 100, 257])
+@pytest.mark.parametrize("L", [1, 31, 32, 33, 64, 100, 257, 1023, 1024,
+                               1025, 2061])
 def test_pair_stats_warp_gap_scan_model(L):
-    """D1's gap openings, 32 columns a step by ballots, against the host's
-    per-pair state machine: random masks, all-gap rows, both-gap runs
-    across step boundaries."""
+    """D1's gap openings, a word of 32 columns at a time in runs of
+    ceil(W / 32) words a lane (1 to 3 words, 1 to 32 lanes busy here), the
+    carry between lanes by ballots, against the host's per-pair state
+    machine: random masks, all-gap rows, both-gap runs across words and
+    lanes.  The counts walked off the bits agree too."""
     rng = np.random.default_rng(L)
-    v = np.zeros(L, np.int64)
     for k in range(12):
         g1 = rng.random(L) < 0.35
         g2 = rng.random(L) < 0.35
@@ -255,8 +257,94 @@ def test_pair_stats_warp_gap_scan_model(L):
             g1[:] = True
         if k == 2:
             g1[:] = g2[:] = True
-        assert checks.pair_gaps_warp_model(g1, g2) == _pair_stats(
-            v, g1, v, g2, 20, 20)[1]
+        v = rng.integers(0, 21, (2, L))
+        packed = checks.pair_pack_model(v, np.stack([g1, g2]), 20)
+        counts, gaps = checks.pair_stats_word_model(*packed, [0], [1], 20)
+        want = _pair_stats(v[0], g1, v[1], g2, 20, 20)
+        assert gaps[0] == want[1]
+        assert np.array_equal(counts[0], want[0])
+
+
+def _pair_stats_all(vals, gapm, cb):
+    """Every pair of the alignment through D1's numpy models, the plain
+    versions and the host batch: (models, plain, host), each (counts,
+    gaps), and the pairs."""
+    pi, pj = (a.astype(np.int32) for a in np.triu_indices(len(vals), 1))
+    packed = checks.pair_pack_model(vals, gapm, cb)
+    plain_packed = pair_pack(T(vals), T(gapm), cb)
+    for got, want in zip(plain_packed, packed):
+        assert np.array_equal(got.numpy().view(want.dtype), want)
+    model = checks.pair_stats_word_model(*packed, pi, pj, cb)
+    c, g = pair_stats_torch(T(vals), T(gapm), T(pi), T(pj), cb)
+    assert c.dtype == count_dtype(vals.shape[1])
+    host = _pair_stats_batch_host(vals, gapm.astype(bool),
+                                  pi.astype(np.intp), pj.astype(np.intp),
+                                  cb, cb)
+    return model, (c.numpy(), g.numpy()), host, (pi, pj)
+
+
+@pytest.mark.parametrize("mask", checks.PAIR_MASKS)
+@pytest.mark.parametrize("alpha", list(checks.PAIR_ALPHABETS))
+def test_pair_stats_models_match_host_and_jax(alpha, mask):
+    """D1's pack and statistics models and its plain versions, bit for bit
+    against the host batch and the JAX program, on alignments built to
+    break the word scan: transparent runs across 1-3 words and across a
+    lane's boundary, whole lanes of transparent words entered with carry
+    1, all-gap rows, residues never counted (AA X, DNA N, codons >= 20)."""
+    vals, gapm, cb = checks.pair_stats_msa(alpha, mask)
+    model, plain, host, (pi, pj) = _pair_stats_all(vals, gapm, cb)
+    ref_c, ref_g = pair_stats_device(vals, gapm.astype(bool), pi, pj, cb, cb)
+    for counts, gaps in (model, plain, host):
+        assert np.array_equal(counts, ref_c)
+        assert np.array_equal(gaps, ref_g)
+    assert ref_g.sum() > 0 and ref_c.sum() > 0
+
+
+def test_pair_stats_counts_in_int32_from_2_16_columns():
+    """From 2^16 columns the counts are int32 (uint16 below); the models
+    and the plain versions still agree with the host (65 words a lane)."""
+    assert count_dtype((1 << 16) - 1) == torch.uint16
+    assert count_dtype(1 << 16) == torch.int32
+    vals, gapm, cb = checks.pair_stats_msa("aa", "runs_across_words", N=3,
+                                           L=(1 << 16) + 37)
+    model, plain, host, _ = _pair_stats_all(vals, gapm, cb)
+    assert plain[0].dtype == np.int32
+    for counts, gaps in (model, plain):
+        assert np.array_equal(counts, host[0])
+        assert np.array_equal(gaps, host[1])
+
+
+def test_pair_lane_loads_count_each_lanes_bits():
+    """The lane loads chip_smoke.py reports: the set bits of Ki & Kj in
+    each lane's run of ceil(W / 32) words, and the fullest lane's bits word
+    by word, summed."""
+    rng = np.random.default_rng(5)
+    K = rng.integers(0, 1 << 32, (5, 70), dtype=np.uint64).astype(np.uint32)
+    pi, pj = np.triu_indices(5, 1)
+    loads, steps = checks.pair_lane_loads(K, pi, pj)
+    for p in range(len(pi)):
+        bits = [bin(int(K[pi[p], q]) & int(K[pj[p], q])).count("1")
+                for q in range(70)] + [0] * 26
+        per = np.array(bits).reshape(32, 3)
+        assert np.array_equal(loads[p], per.sum(1))
+        assert steps[p] == per.max(0).sum()
+
+
+@pytest.mark.cuda
+def test_pair_stats_kernels_match_plain_versions():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; chip_smoke.py checks the card")
+    for mask in checks.PAIR_MASKS:
+        vals, gapm, cb = checks.pair_stats_msa("codon", mask)
+        pi, pj = (T(a.astype(np.int32)).cuda()
+                  for a in np.triu_indices(len(vals), 1))
+        args = (T(vals).cuda(), T(gapm).cuda(), pi, pj)
+        for got, want in zip(pair_pack(*args[:2], cb),
+                             pair_pack_torch(*args[:2], cb)):
+            assert torch.equal(got, want)
+        for got, want in zip(pair_stats(*args, cb),
+                             pair_stats_torch(*args, cb)):
+            assert torch.equal(got.long(), want.long())
 
 
 def _encoded(fixture):
