@@ -12,11 +12,19 @@ computes the same function, that call.  Two paths are read for launches:
 the fixed tree (the DP batch's kernels K1, K2, K3, X1) and the free tree
 ``c2_fam100`` (those and the distance kernels D2 ``nw``, D1
 ``pair_stats``), each with the counts set to 0 just before it.  Phase
-``walls`` also runs ``--engine auto`` (golden; the levels it sent to the
-card) and ``--engine device`` (whether fam500 equals native, reported);
-``rates`` prints the calibration and the rates engine_policy.py holds.  Every phase raises on failure; there is no CPU fallback.  One line
-per phase, then one JSON line of kernels, the card's name and power limit,
-and last {"ok": true, "device": {...}}.  Long output goes to chiprun_out/.
+``corpus`` runs every golden case of tests/test_e2e_differential.py (with
+r_fam20 and --profile_out) through the port in process with every pair on
+the card.  Phase ``reroot`` runs the root search (``-r``, ``-r -r``) and
+``--early_refinement`` at fam100 and fam500, each in a process of its own
+that reads its launches from zero (PORT_RUN), against ``--engine native``
+byte for byte, with both walls, the DP batches' sizes and the launches of
+K1, K2, K3, X1 and D1.  Phase ``walls`` also runs ``--engine auto``
+(golden; the levels it sent to the card) and ``--engine device`` (whether
+fam500 equals native, reported); ``rates`` prints the calibration and the
+rates engine_policy.py holds.  Every phase raises on failure; there is no
+CPU fallback.  One line per phase, then one JSON line of kernels, the
+card's name and power limit, and last {"ok": true, "device": {...}}.  Long
+output goes to the directory ``OUT`` below.
 
 Two times per kernel.  ``ms`` is the call time: CUDA events round a loop
 of calls of the Python wrapper, so a kernel shorter than its launch path
@@ -833,6 +841,167 @@ def phase_walls(tmp):
     say("startup", t0, **startup)
 
 
+def before_timings(err):
+    """stderr without the --timings report at its end."""
+    return err.split("timings (wall seconds")[0]
+
+
+def phase_corpus(tmp):
+    """Every golden case of tests/test_e2e_differential.py, r_fam20 and
+    --profile_out through the port in process on the card, byte for byte,
+    stderr too where a golden holds it; every pair on the card (cases with
+    -T run no DP)."""
+    t0 = time.perf_counter()
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    try:
+        from test_e2e_differential import CASES, _strip_header
+    finally:
+        sys.path.pop(0)
+    cases = list(CASES) + [("r_fam20.fasta", ["--fasta", "-r",
+                                              FIX + "/fam20.fasta"])]
+    bad, pairs = [], 0
+    for golden, args in cases:
+        out = os.path.join(tmp, "corpus_" + golden)
+        err, ctr = run_port(args + ["--engine", "torch", "--device", "cuda",
+                                    "--timings", "-o", out])
+        with open(out) as f, open(os.path.join(GOLD, golden)) as g:
+            if _strip_header(f.read()) != _strip_header(g.read()):
+                bad.append("%s: output differs from the golden" % golden)
+        err_gold = os.path.join(GOLD, os.path.splitext(golden)[0]
+                                + ".stderr")
+        if os.path.exists(err_gold):
+            with open(err_gold) as f:
+                if before_timings(err) != f.read():
+                    bad.append("%s: stderr differs from the golden"
+                               % golden)
+        if "-T" in args:
+            continue
+        pairs += ctr.get("torch_pairs_total", 0)
+        fb = {k: v for k, v in ctr.items() if k.startswith("torch_fb_") and v}
+        left = ctr.get("torch_pairs_total", 0) - ctr.get("torch_pairs_device",
+                                                         0)
+        if fb or left or not ctr.get("torch_pairs_total"):
+            bad.append("%s: %d pairs left the card, fallbacks %s"
+                       % (golden, left, fb))
+    out = os.path.join(tmp, "corpus_prof.fasta")
+    prof = os.path.join(tmp, "corpus.profile")
+    run_port(["--fasta", "--profile_out", prof, "-t", GOLD + "/tree0_fam20.nwk",
+              FIX + "/fam20.fasta", "--device", "cuda", "-o", out])
+    if not same_file(prof, GOLD + "/t_fam20.profile"):
+        bad.append("t_fam20.profile: --profile_out differs from the golden")
+    for line in bad:
+        print("corpus: " + line, flush=True)
+    if bad:
+        raise AssertionError("corpus: %d of %d cases failed"
+                             % (len(bad), len(cases) + 1))
+    say("corpus", t0, cases=len(cases) + 1, identical=True, pairs=pairs,
+        fb=0, seconds="%.2f" % (time.perf_counter() - t0))
+
+
+# The port's CLI in a process of its own that also writes, to argv[1], the
+# kernels' launch counts and the pairs of every call of the DP batch.
+PORT_RUN = """
+import json, sys
+from prographmsa_tpu_torch import _build
+from prographmsa_tpu_torch.align import graph_dp_cuda as gdp
+from prographmsa_tpu_torch.cli import main
+sizes, orig = [], gdp.align_pairs_device
+def recorded(items, device):
+    sizes.append(len(items))
+    return orig(items, device)
+gdp.align_pairs_device = recorded
+rc = main(sys.argv[2:])
+with open(sys.argv[1], "w") as f:
+    json.dump({"launches": dict(_build.LAUNCHES), "batches": sizes}, f)
+sys.exit(rc)
+"""
+
+REROOT = (("r_t_fam100", ["--fasta", "-r", "-t", GOLD + "/tree0_fam100.nwk",
+                          FIX + "/fam100.fasta"]),
+          ("r_fam100", ["--fasta", "-r", FIX + "/fam100.fasta"]),
+          ("er_t_fam100", ["--fasta", "--early_refinement", "-t",
+                           GOLD + "/tree0_fam100.nwk",
+                           FIX + "/fam100.fasta"]),
+          ("r_fam500_i0", ["--fasta", "-r", "-i", "0",
+                           FIX + "/fam500.fasta"]),
+          ("rr_fam500_i0", ["--fasta", "-r", "-r", "-i", "0",
+                            FIX + "/fam500.fasta"]),
+          ("er_fam500_i0", ["--fasta", "--early_refinement", "-i", "0",
+                            FIX + "/fam500.fasta"]))
+REROOT_KERNELS = DP_KERNELS + ("pair_pack", "pair_stats")
+
+
+def phase_reroot(tmp):
+    """The root search and the early refinement at fam100 and fam500: the
+    port on the card (a process of its own that records its DP batches and
+    launches) against its own --engine native, byte for byte, stdout and
+    stderr (the best score and TR lines; the --timings report apart), the
+    two walls side by side."""
+    t0 = time.perf_counter()
+    launches_of = {}
+    for name, args in REROOT:
+        o_port = os.path.join(tmp, name + ".port")
+        o_nat = os.path.join(tmp, name + ".native")
+        rec = os.path.join(tmp, name + ".json")
+        cmd = [sys.executable, "-c", PORT_RUN, rec, *args, "--engine",
+               "torch", "--device", "cuda", "--timings", "-o", o_port]
+        t1 = time.perf_counter()
+        p = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                           timeout=900)
+        w_port = time.perf_counter() - t1
+        if p.returncode != 0:
+            raise AssertionError("%s exited %d: %s" % (name, p.returncode,
+                                                       p.stderr[-3000:]))
+        err = p.stderr
+        w_nat, err_nat = cli_wall(args, o_nat, ("--engine", "native",
+                                                "--timings"))
+        note("== %s port --timings" % name, err,
+             "== %s native --timings" % name, err_nat)
+        if not same_file(o_port, o_nat):
+            raise AssertionError("%s: port differs from --engine native"
+                                 % name)
+        if before_timings(err) != before_timings(err_nat):
+            raise AssertionError("%s: stderr differs from --engine native:"
+                                 "\n%s\n%s" % (name, before_timings(err),
+                                                before_timings(err_nat)))
+        with open(rec) as f:
+            run = json.load(f)
+        launches = {k: run["launches"][k] for k in REROOT_KERNELS}
+        launches_of[name] = launches
+        sizes = run["batches"]
+        ctr = counters_of(err)
+        fb = {k: ctr.get("torch_" + k, 0) for k in gdp.FALLBACK_KEYS
+              if k.startswith("fb_")}
+        if not all(launches[k] > 0 for k in DP_KERNELS):
+            raise AssertionError("%s: a DP kernel was not launched: %s"
+                                 % (name, launches))
+        if name == "r_fam100" and not launches["pair_stats"]:
+            raise AssertionError("r_fam100: D1 was not launched on the "
+                                 "re-trees: %s" % launches)
+        if "-r" in args and (ctr["torch_pairs_device"]
+                             != ctr["torch_pairs_total"] or any(fb.values())):
+            raise AssertionError("%s: pairs left the card: %s"
+                                 % (name, ctr))
+        score = [ln for ln in err.splitlines()
+                 if ln.startswith("best gap parsimony score")]
+        say(name, t0, port_s="%.3f" % w_port, native_s="%.3f" % w_nat,
+            identical="stdout+stderr", score=score[0].split(": ")[1]
+            if score else None, batches=len(sizes),
+            batches_on_card=ctr.get("torch_levels_device", 0),
+            pairs_max=max(sizes), pairs_mean="%.1f" % (sum(sizes)
+                                                       / len(sizes)),
+            pairs_device=ctr["torch_pairs_device"],
+            pairs_total=ctr["torch_pairs_total"],
+            launches=json.dumps(launches, separators=(",", ":")),
+            dp_device_s=timing_of(err, "dp_device"),
+            dp_prep_s=timing_of(err, "dp_prep"),
+            merge_s="%s/%s" % (timing_of(err, "merge"),
+                               timing_of(err_nat, "merge")),
+            **fb)
+        t0 = time.perf_counter()
+    return launches_of
+
+
 def time_cuda(fn, reps, warm=True):
     if warm:
         fn()
@@ -1633,6 +1802,8 @@ def main():
     os.makedirs(OUT, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=OUT) as tmp:
         launches, launches_c2, largest = phase_fam100(dev, tmp)
+        phase_corpus(tmp)
+        launches_reroot = phase_reroot(tmp)
         phase_walls(tmp)
         launches500, root, sum500, sum500_dev = phase_levels(dev, tmp)
         res_nw, rates = phase_nw(dev)
@@ -1657,6 +1828,8 @@ def main():
         row = {"name": k, "route": "cuda", "source": src, "replaces": repl,
                "launches": launches[k], "launches_c2_fam100": launches_c2[k],
                "launches_fam500": launches500[k],
+               "launches_reroot_fam100": launches_reroot["r_t_fam100"][k],
+               "launches_reroot_fam500": launches_reroot["r_fam500_i0"][k],
                "max_abs_err": max_err[k],
                "ms_fam500_levels_sum": sum500[k],
                "device_ms_fam500_levels_sum": sum500_dev[k],
@@ -1689,6 +1862,9 @@ def main():
     kern.append(dist_row("nw", launches_c2, res_nw, "fam100"))
     kern.append(dist_row("pair_pack", launches_c2, res_pack, "c2_fam100"))
     kern.append(dist_row("pair_stats", launches_c2, res_ps, "c2_fam100"))
+    for row in kern[-2:]:    # D1 on the re-trees of the free-tree -r run
+        row["launches_reroot_free_fam100"] = \
+            launches_reroot["r_fam100"][row["name"]]
     print(json.dumps({"kernels": kern}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -57,38 +57,45 @@ def offset_costs_rep(graph, scores, max_offsets: int):
     iff slot k is a repeat slot with a real edge into node i (the chase
     records a markAlternativePath event when it steps through one)."""
     n = graph.size
-    off_n, off_r = set(), set()
-    for i in range(n):
-        for p, _ in graph.preds[i]:
-            off_n.add(i - p)
-        for p, _ in graph.reps[i]:
-            off_r.add(i - p)
-    off_n = sorted(off_n)
-    off_r = sorted(off_r)
-    slots = off_r + off_n
-    if len(slots) > max_offsets:
+    idx, cost, isrep, units = graph.padded()
+    to, col = np.nonzero(idx >= 0)           # row-major: PredIterator order
+    off = to - idx[to, col]
+    is_rep = isrep[to, col]
+    off_n = np.unique(off[~is_rep])
+    off_r = np.unique(off[is_rep])
+    if len(off_r) + len(off_n) > max_offsets:
         return None
-    m = max(1, len(slots))
+    m = max(1, len(off_r) + len(off_n))
     C = np.full((n, m), np.inf, dtype=np.float32)
     rep = np.zeros((n, m), dtype=bool)
-    nmap = {o: len(off_r) + k for k, o in enumerate(off_n)}
-    rmap = {o: k for k, o in enumerate(off_r)}
+    nrm = ~is_rep
+    _first_min(C, to[nrm], len(off_r) + np.searchsorted(off_n, off[nrm]),
+               cost[to[nrm], col[nrm]])
     ri = np.float32(scores.repeat_init)
     re = np.float32(scores.repeat_ext)
-    for i in range(n):
-        for p, c in graph.preds[i]:
-            k = nmap[i - p]
-            c32 = np.float32(c)
-            if c32 < C[i, k]:
-                C[i, k] = c32
-        for p, u in graph.reps[i]:
-            k = rmap[i - p]
-            with np.errstate(invalid="ignore"):
-                rc = np.float32(ri + re * np.float32(u - 1))
-            if np.isnan(rc):
-                continue                     # NaN cost: never chosen
-            if rc < C[i, k]:
-                C[i, k] = rc
-            rep[i, k] = True
-    return (np.array(slots, dtype=np.int32) if slots
-            else np.array([1], dtype=np.int32)), C, rep
+    with np.errstate(invalid="ignore"):
+        rc = ri + re * (units[to[is_rep], col[is_rep]] - 1).astype(np.float32)
+    real = ~np.isnan(rc)                     # NaN cost: never chosen
+    rto = to[is_rep][real]
+    rk = np.searchsorted(off_r, off[is_rep][real])
+    _first_min(C, rto, rk, rc[real])
+    rep[rto, rk] = True
+    slots = np.concatenate([off_r, off_n]).astype(np.int32)
+    return (slots if len(slots) else np.array([1], dtype=np.int32)), C, rep
+
+
+def _first_min(C, rows, cols, vals):
+    """C[r, c] = min(C[r, c], vals) per cell as a loop of strict ``<``
+    updates in the given order would leave it: the first of equal values
+    (0.0 and -0.0) is kept and NaN never wins."""
+    keep = ~np.isnan(vals)
+    rows, cols, vals = rows[keep], cols[keep], vals[keep]
+    if not len(vals):
+        return
+    cell = rows * C.shape[1] + cols
+    order = np.lexsort((np.arange(len(vals)), vals, cell))
+    first = np.ones(len(order), dtype=bool)
+    first[1:] = cell[order][1:] != cell[order][:-1]
+    pick = order[first]
+    better = vals[pick] < C[rows[pick], cols[pick]]
+    C[rows[pick][better], cols[pick][better]] = vals[pick][better]

@@ -1,6 +1,7 @@
 """Command line of the PyTorch/CUDA port: the flags and orchestration of
 the reference binary (main.cpp:32-483), as prographmsa_tpu/cli.py has them,
-with the graph-pair DP of every progressive pass on the port's device batch.
+with the graph-pair DP of every progressive pass, of the root search and of
+the early refinement on the port's device batch.
 
   python -m prographmsa_tpu_torch.cli [reference flags] \\
       [--engine torch|device|auto|native] [--device cuda|cpu] sequences.fasta
@@ -14,8 +15,9 @@ chooses per level and per stage from a probed calibration of the card;
 ``native`` keeps everything on the port's C++ host tier.  ``--device``
 defaults to ``cuda``, which must exist: there is no silent CPU run
 (``cpu`` runs the kernels' plain PyTorch versions; ``auto`` calibrates
-the card and needs ``cuda``).  ``-r`` and ``--early_refinement`` are not
-ported yet and exit with an error.
+the card and needs ``cuda``).  The root search (``-r``, ``-r -r``,
+engine/find_root.py) and ``--early_refinement`` (in the level scheduler)
+send their alignments through the same DP batch, wave by wave.
 """
 
 from __future__ import annotations
@@ -37,12 +39,6 @@ from .io.stockholm import write_stockholm
 from .models.factory import get_default_model_factory
 from .tree.phytree import get_tree_order
 from .tree.treenj import tree_nj
-
-NOT_PORTED = {
-    "reroot": "-r/--reroot",
-    "early_refinement": "--early_refinement",
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -262,7 +258,13 @@ def do_align(seqs: Dict[str, str], options, device, engine: str = "torch"):
             ckpt.save(i + 1, tree, all_trees, old_aligned)
 
     if not options.onlytree_flag:
-        result = _progressive(tree)
+        if options.reroot_flag:
+            from .engine.find_root import progressive_alignment_find_root
+            result = progressive_alignment_find_root(
+                spec, seqs2, tree, reps, csprofile, factory, options, device,
+                engine)
+        else:
+            result = _progressive(tree)
 
     if options.repeats_flag:
         # with -T the reference prints the default-constructed count
@@ -300,13 +302,6 @@ def _aligned_equal(a, b) -> bool:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for dest, flag in NOT_PORTED.items():
-        if getattr(args, dest):
-            print("error: %s is not ported to the torch package yet "
-                  "(ROADMAP.md, modules still to port: -r find-root and "
-                  "--early_refinement on the device DP)" % flag,
-                  file=sys.stderr)
-            return 2
     options = options_from_args(args).replace(engine="native")
     try:
         device = engine_device(args.engine, args.device)

@@ -2,16 +2,18 @@
 
 Re-derivation of ProgressiveAlignment.{h,cpp}: post-order recursion over the
 guide tree; leaves become sequence graphs; internal nodes clean, align,
-merge, and extend the descendant alignments.  The port's copy of
-prographmsa_tpu/engine/progressive.py with the host engines only; the
-level scheduler (engine/level_driver.py) replaces the per-node align with the
-device batch.
+merge, and extend the descendant alignments, each node refined after its
+alignment under --early_refinement.  The port's copy of
+prographmsa_tpu/engine/progressive.py with the host engines only.  This
+recursion is the port's sequential oracle: the level scheduler
+(engine/level_driver.py) and the root search (engine/find_root.py) run the
+same alignments in batches on the device and are held against it.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 from ..errors import ParityError
@@ -248,8 +250,12 @@ def align_progressive_results(r1, r2, distance1, distance2, support1,
 
 
 def progressive_alignment(spec, sequences, tree: PhyTree, repeats, csprofile,
-                          factory, options) -> ProgressiveAlignmentResult:
-    """ProgressiveAlignment.h:59-113."""
+                          factory, options,
+                          alignment_cache: Optional[dict] = None
+                          ) -> ProgressiveAlignmentResult:
+    """ProgressiveAlignment.h:59-113.  ``alignment_cache`` receives every
+    node's (refined) result by ``id`` of its tree node, which the early
+    refinement of its grandparent reads."""
     result = ProgressiveAlignmentResult()
     result.is_csprofile = False
 
@@ -282,12 +288,21 @@ def progressive_alignment(spec, sequences, tree: PhyTree, repeats, csprofile,
         if tree.n_children() != 2:
             raise ParityError("only bifurcating trees allowed")
         r1 = progressive_alignment(spec, sequences, tree[0], repeats,
-                                   csprofile, factory, options)
+                                   csprofile, factory, options,
+                                   alignment_cache)
         r2 = progressive_alignment(spec, sequences, tree[1], repeats,
-                                   csprofile, factory, options)
+                                   csprofile, factory, options,
+                                   alignment_cache)
         result = align_progressive_results(
             r1, r2, tree[0].branch_length, tree[1].branch_length,
             tree[0].branch_support, tree[1].branch_support, factory, options,
             spec)
+        if options.earlyref_flag:
+            from .early_refinement import early_refinement
+            result = early_refinement(result, tree, factory, options, spec,
+                                      alignment_cache)
+
+    if options.earlyref_flag and alignment_cache is not None:
+        alignment_cache[id(tree)] = result
 
     return result

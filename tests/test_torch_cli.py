@@ -1,9 +1,10 @@
 """The port's CLI (python -m prographmsa_tpu_torch.cli) and its dist tool
 (python -m prographmsa_tpu_torch.dist_cli) against the goldens, byte for
 byte, with the card's stages (DP batch, NW, prealigned statistics) on
-``--device cpu`` (the kernels' plain PyTorch versions).  On the card
-chip_smoke.py drives the same CLI with ``--device cuda`` on fam100 and
-fam500.
+``--device cpu`` (the kernels' plain PyTorch versions).  The rest of the
+golden corpus is in test_torch_cli_corpus*.py and test_torch_cli_reroot.py.
+On the card chip_smoke.py drives the same CLI with ``--device cuda`` on
+the corpus, fam100 and fam500.
 """
 
 import os
@@ -51,12 +52,16 @@ def _check(golden, out, stderr):
             assert stderr == f.read()
 
 
-@pytest.mark.parametrize("golden,args", CASES, ids=[c[0] for c in CASES])
-def test_port_cli_golden(golden, args, tmp_path):
+def run_port_case(golden, args, tmp_path):
     out = str(tmp_path / "out")
     stderr = run_cli(args + ["--engine", "torch", "--device", "cpu"], out,
                      module="prographmsa_tpu_torch.cli")
     _check(golden, out, stderr)
+
+
+@pytest.mark.parametrize("golden,args", CASES, ids=[c[0] for c in CASES])
+def test_port_cli_golden(golden, args, tmp_path):
+    run_port_case(golden, args, tmp_path)
 
 
 @pytest.mark.parametrize("golden,args", DIST_CASES,
@@ -99,19 +104,24 @@ def test_port_cli_native_engine_golden(tmp_path):
 
 
 def test_port_never_imports_jax(tmp_path):
+    """A fixed-tree pass and a free-tree root search (``-r``) in one
+    process: neither imports jax nor the JAX package."""
     out = str(tmp_path / "out")
+    out_r = str(tmp_path / "out_r")
     code = (
         "import sys\n"
         "from prographmsa_tpu_torch.cli import main\n"
         "rc = main(['--fasta', '-t', %r, %r, '--device', 'cpu',"
         " '--timings', '-o', %r])\n"
         "assert rc == 0, rc\n"
+        "rc = main(['--fasta', '-r', %r, '--device', 'cpu', '-o', %r])\n"
+        "assert rc == 0, rc\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "stray = [m for m in sys.modules if m == 'prographmsa_tpu'"
         " or m.startswith('prographmsa_tpu.')]\n"
         "assert not stray, stray\n"
         "print('NO-JAX')\n" % (G + "/tree0_fam6.nwk", FIX + "/fam6.fasta",
-                               out))
+                               out, FIX + "/fam6.fasta", out_r))
     env = dict(os.environ)
     env.pop("JAX_PLATFORMS", None)
     p = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -122,18 +132,9 @@ def test_port_never_imports_jax(tmp_path):
     assert "torch_levels_host" not in p.stderr
     with open(out) as f, open(G + "/t_fam6.fasta") as g:
         assert f.read() == g.read()
-
-
-@pytest.mark.parametrize("flag", ["-r", "--early_refinement"])
-def test_unported_flags_exit_with_error(flag, tmp_path):
-    p = subprocess.run(
-        [sys.executable, "-m", "prographmsa_tpu_torch.cli", "--fasta", flag,
-         "--device", "cpu", FIX + "/fam6.fasta", "-o",
-         str(tmp_path / "out")], cwd=REPO, capture_output=True, text=True,
-        timeout=300)
-    assert p.returncode == 2
-    assert "ROADMAP" in p.stderr
-    assert not (tmp_path / "out").exists()
+    with open(out_r) as f, open(G + "/r_fam6.fasta") as g:
+        assert f.read() == g.read()
+    assert "best gap parsimony score: 7" in p.stderr
 
 
 def test_cuda_device_without_cuda_exits(tmp_path):

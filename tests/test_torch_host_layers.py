@@ -301,3 +301,50 @@ def test_guide_tree_host_stages_on_fam20(stage):
                                              ropts)
     for a, b in zip(mine, theirs):
         assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("name,flags", [
+    ("fam20", dict(reroot_flag=1)),
+    ("rep8", dict(reroot_flag=1)),
+    ("rep8", dict(earlyref_flag=True))], ids=["fam20_r", "rep8_r", "rep8_er"])
+def test_offset_costs_rep_on_the_slice_graphs(name, flags, monkeypatch):
+    """Every graph that the root search or the refinement sends to the DP
+    batch (cleaned merged graphs, uncleaned repeat graphs): the port's
+    tables, built from the padded arrays, equal the JAX package's loop over
+    the edge lists; on the repeat graphs also with an infinite repeat
+    extension, whose one-unit repeat edges cost NaN (inf * 0)."""
+    from types import SimpleNamespace
+
+    from prographmsa_tpu_torch.engine import find_root, level_driver
+    from test_torch_find_root import setup, stderr_of
+
+    items = []
+    orig = level_driver.align_items
+
+    def recorded(its, *a):
+        items.extend(its)
+        return orig(its, *a)
+
+    monkeypatch.setattr(level_driver, "align_items", recorded)
+    spec, seqs, tree, reps, fac, opts = setup("prographmsa_tpu_torch", name,
+                                              **flags)
+    run = (find_root.progressive_alignment_find_root if opts.reroot_flag
+           else level_driver.progressive_alignment_batched)
+    stderr_of(run, spec, seqs, tree, reps, None, fac, opts, None)
+    assert len(items) > 20
+    n_reps = 0
+    for g1, g2, _m, sc in items:
+        for g in (g1, g2):
+            scs = [sc]
+            if any(g.reps):
+                n_reps += 1
+                scs.append(SimpleNamespace(repeat_init=sc.repeat_init,
+                                           repeat_ext=np.float32(np.inf)))
+            for s in scs:
+                mine = slots.offset_costs_rep(g, s, slots.MAX_OFF)
+                theirs = ref_gdp._offset_costs_rep(g, s, ref_gdp.MAX_OFF)
+                assert (mine is None) == (theirs is None)
+                if mine is not None:
+                    for a, b in zip(mine, theirs):
+                        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert (n_reps > 0) == (name == "rep8")
