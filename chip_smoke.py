@@ -21,7 +21,13 @@ byte for byte, with both walls, the DP batches' sizes and the launches of
 K1, K2, K3, X1 and D1.  Phase ``walls`` also runs ``--engine auto``
 (golden; the levels it sent to the card) and ``--engine device`` (whether
 fam500 equals native, reported); ``rates`` prints the calibration and the
-rates engine_policy.py holds.  Every phase raises on failure; there is no
+rates engine_policy.py holds.  Phase ``mesh`` (phase_mesh) holds the
+scale-out on the one card: the split programs and the level and
+root-search batches over 1, 2 and 4 shards of cuda:0 against the unsplit
+work, c2_fam100 through the CLI over 4 shards (its launches are the
+kernels line's ``launches_mesh``), and three runs in two processes of one
+cluster sharing the card against one process.  Every phase raises on
+failure; there is no
 CPU fallback.  One line per phase, then one JSON line of kernels, the
 card's name and power limit, and last {"ok": true, "device": {...}}.  Long
 output goes to the directory ``OUT`` below.
@@ -72,6 +78,7 @@ import json
 import os
 import platform
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -106,6 +113,11 @@ from prographmsa_tpu_torch.distances.prealigned_cuda import (
     count_dtype, pair_pack, pair_pack_torch, pair_stats, pair_stats_torch,
     words)
 from prographmsa_tpu_torch.io.fasta import read_fasta
+from prographmsa_tpu_torch.parallel import dryrun as port_dryrun
+from prographmsa_tpu_torch.parallel.mesh import Mesh
+from prographmsa_tpu_torch.parallel.sharded import (sharded_freq_hist,
+                                                    sharded_gram,
+                                                    sharded_nw_counts)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIX = os.path.join(REPO, "fixtures")
@@ -564,9 +576,9 @@ def run_port(argv, record=None):
     ``record``: a list that receives every level batch's items."""
     orig = gdp.align_pairs_device
     if record is not None:
-        def wrapped(items, device):
+        def wrapped(items, device, mesh=None):
             record.append(list(items))
-            return orig(items, device)
+            return orig(items, device, mesh)
         gdp.align_pairs_device = wrapped
     err = io.StringIO()
     try:
@@ -723,7 +735,7 @@ def phase_levels(dev, tmp):
         layouts_checked=n, chase_layouts_checked=n_chase,
         vs_plain="bit-identical (full pair)",
         vs_native="mappings+score+n_tr identical")
-    return launches, root, total, total_dev
+    return launches, root, total, total_dev, levels
 
 
 def cli_wall(args, out, extra=()):
@@ -759,14 +771,15 @@ WALLS = (("t_fam100", ["--fasta", "-t", GOLD + "/tree0_fam100.nwk",
                                FIX + "/fam500.fasta"]))
 
 
-def phase_walls(tmp):
+def phase_walls(tmp, runs):
     """The port on the card against its own --engine native on this host,
     as separate processes, byte for byte: fam100 fixed tree, fam500 -i 0,
     fam100 free tree (--mldist --nwdist: NW and prealigned on the card) and
     fam500 --nwdist -i 0, with the distances' share from --timings; then
     --engine auto on the fixed tree (golden, and the levels it sent to the
     card), --engine device on fam500 -i 0 (reported, not held), and the
-    start-up (imports, CUDA context) of each."""
+    start-up (imports, CUDA context) of each.  Each port run's wall,
+    stderr and output go into ``runs`` (phase ``mesh`` reads them)."""
     t0 = time.perf_counter()
     if not native.available():
         raise AssertionError("the port's native host library did not build: "
@@ -791,6 +804,8 @@ def phase_walls(tmp):
         note("== %s port --timings" % name, err,
              "== %s native --timings" % name, err_nat)
         walls[name] = (w_port, w_nat)
+        runs[name] = {"wall": w_port, "err": err, "out": o_port,
+                      "ref": o_nat}
         say(name, t0, port_s="%.3f" % w_port, native_s="%.3f" % w_nat,
             identical=True, pairs_device=ctr["torch_pairs_device"],
             pairs_total=ctr["torch_pairs_total"],
@@ -899,20 +914,35 @@ def phase_corpus(tmp):
 
 
 # The port's CLI in a process of its own that also writes, to argv[1], the
-# kernels' launch counts and the pairs of every call of the DP batch.
+# kernels' launch counts, the pairs of every call of the DP batch and the
+# time (epoch seconds) at which the CLI returned; with SMOKE_MESH=1 in its
+# environment, after that, also what mesh_batches finds on its largest
+# batch.
 PORT_RUN = """
-import json, sys
+import json, os, sys, time
 from prographmsa_tpu_torch import _build
 from prographmsa_tpu_torch.align import graph_dp_cuda as gdp
 from prographmsa_tpu_torch.cli import main
-sizes, orig = [], gdp.align_pairs_device
-def recorded(items, device):
+sizes, largest, orig = [], [], gdp.align_pairs_device
+keep = os.environ.get("SMOKE_MESH") == "1"
+def recorded(items, device, mesh=None):
     sizes.append(len(items))
-    return orig(items, device)
+    if keep and len(items) > len(largest):
+        largest[:] = items
+    return orig(items, device, mesh)
 gdp.align_pairs_device = recorded
 rc = main(sys.argv[2:])
+gdp.align_pairs_device = orig
+run = {"launches": dict(_build.LAUNCHES), "batches": sizes,
+       "t_main": time.time()}
+if keep and rc == 0:
+    import torch
+    from chip_smoke import mesh_batches, shard_meshes
+    dev = torch.device("cuda", 0)
+    run["mesh"] = {"pairs": len(largest), "dp_device_s": mesh_batches(
+        [largest], dev, shard_meshes(dev), turns=1)}
 with open(sys.argv[1], "w") as f:
-    json.dump({"launches": dict(_build.LAUNCHES), "batches": sizes}, f)
+    json.dump(run, f)
 sys.exit(rc)
 """
 
@@ -931,12 +961,16 @@ REROOT = (("r_t_fam100", ["--fasta", "-r", "-t", GOLD + "/tree0_fam100.nwk",
 REROOT_KERNELS = DP_KERNELS + ("pair_pack", "pair_stats")
 
 
-def phase_reroot(tmp):
+def phase_reroot(tmp, runs):
     """The root search and the early refinement at fam100 and fam500: the
     port on the card (a process of its own that records its DP batches and
     launches) against its own --engine native, byte for byte, stdout and
     stderr (the best score and TR lines; the --timings report apart), the
-    two walls side by side."""
+    two walls side by side (the port's from its start to its CLI's return).
+    fam500 -r -i 0 also holds its largest batch over 1, 2 and 4 shards of
+    the card against the unsplit batch (mesh_batches) after its CLI
+    returns; phase ``mesh`` reads that from ``runs``, with each run's
+    wall, stderr and output."""
     t0 = time.perf_counter()
     launches_of = {}
     for name, args in REROOT:
@@ -945,10 +979,11 @@ def phase_reroot(tmp):
         rec = os.path.join(tmp, name + ".json")
         cmd = [sys.executable, "-c", PORT_RUN, rec, *args, "--engine",
                "torch", "--device", "cuda", "--timings", "-o", o_port]
-        t1 = time.perf_counter()
+        t1 = time.time()
         p = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                           timeout=900)
-        w_port = time.perf_counter() - t1
+                           timeout=900,
+                           env=dict(os.environ, SMOKE_MESH=str(
+                               int(name == "r_fam500_i0"))))
         if p.returncode != 0:
             raise AssertionError("%s exited %d: %s" % (name, p.returncode,
                                                        p.stderr[-3000:]))
@@ -966,6 +1001,9 @@ def phase_reroot(tmp):
                                                 before_timings(err_nat)))
         with open(rec) as f:
             run = json.load(f)
+        w_port = run["t_main"] - t1
+        runs[name] = {"wall": w_port, "err": err, "out": o_port,
+                      "ref": o_nat, "mesh": run.get("mesh")}
         launches = {k: run["launches"][k] for k in REROOT_KERNELS}
         launches_of[name] = launches
         sizes = run["batches"]
@@ -1000,6 +1038,243 @@ def phase_reroot(tmp):
             **fb)
         t0 = time.perf_counter()
     return launches_of
+
+
+MESH_SHARDS = (1, 2, 4)       # shards of one card phase ``mesh`` holds
+# The runs phase ``mesh`` repeats in two processes of one cluster on the
+# card, each against the single process of phase ``walls`` or ``reroot``.
+TWO_PROCESS = (("fam500_nwdist_i0", WALLS[3][1]), ("c2_fam100", WALLS[2][1]),
+               ("r_t_fam100", REROOT[0][1]))
+JOIN = "prographmsa: joined distributed cluster as process"
+
+
+def same_results(a, b):
+    """Two results of align_pairs_device agree pair for pair: mappings,
+    the score's bits and n_tr_indels, or both None (a host fallback)."""
+    return len(a) == len(b) and all(
+        (x is None and y is None) or (
+            x is not None and y is not None and list(x[0]) == list(y[0])
+            and list(x[1]) == list(y[1])
+            and np.float32(x[2]).view(np.int32)
+            == np.float32(y[2]).view(np.int32) and x[3] == y[3])
+        for x, y in zip(a, b))
+
+
+def shard_meshes(dev):
+    """{name: mesh}: unsplit (None), then MESH_SHARDS shards of ``dev``."""
+    meshes = {"unsplit": None}
+    meshes.update({"%d_shards" % k: Mesh((dev,) * k) for k in MESH_SHARDS})
+    return meshes
+
+
+def mesh_batches(batches, dev, meshes, turns):
+    """Every batch through align_pairs_device on ``dev`` under each of
+    ``meshes`` (the first: the reference), in turns (twice: there and
+    back), each held against the first's results; the least ``dp_device``
+    seconds of each, summed over the batches."""
+    order = list(meshes) + (list(meshes)[::-1] if turns == 2 else [])
+    secs, ref = {k: [] for k in meshes}, None
+    for name in order:
+        timings.enable(True)
+        res = [gdp.align_pairs_device(items, dev, meshes[name])
+               for items in batches]
+        buf = io.StringIO()
+        timings.report(buf)
+        timings.enable(False)
+        secs[name].append(timing_of(buf.getvalue(), "dp_device"))
+        if ref is None:
+            ref = res
+        elif not all(same_results(a, b) for a, b in zip(ref, res)):
+            raise AssertionError("mesh: %s differs from the unsplit batch"
+                                 % name)
+    return {k: min(v) for k, v in secs.items()}
+
+
+def host_ms(fn):
+    """(fn's result, its milliseconds on the host's clock, the card
+    synchronised before and after): a split program's wall, its copies
+    and gathers included."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def processes(name, args, tmp, n=2, env_of=lambda r: {}):
+    """The port's CLI on the card in ``n`` processes of one cluster
+    (PROGRAPHMSA_DIST=1, gloo on localhost), process r with ``env_of(r)``
+    in its environment too: (wall, [(output path, stderr)])."""
+    port = free_port()
+    procs, outs = [], []
+    t0 = time.perf_counter()
+    for r in range(n):
+        out = os.path.join(tmp, "%s.dist%d" % (name, r))
+        env = dict(os.environ, PROGRAPHMSA_DIST="1",
+                   PROGRAPHMSA_COORD="127.0.0.1:%d" % port,
+                   PROGRAPHMSA_NUM_PROCESSES=str(n),
+                   PROGRAPHMSA_PROCESS_ID=str(r), **env_of(r))
+        procs.append((out, subprocess.Popen(
+            [sys.executable, "-m", "prographmsa_tpu_torch.cli", *args,
+             "--engine", "torch", "--device", "cuda", "--timings", "-o",
+             out], cwd=REPO, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    try:
+        for out, p in procs:
+            stdout, err = p.communicate(timeout=600)
+            if p.returncode != 0 or stdout:
+                raise AssertionError("%s: a process of %d exited %d:\n%s"
+                                     % (name, n, p.returncode, err[-3000:]))
+            outs.append((out, err))
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return time.perf_counter() - t0, outs
+
+
+def check_processes(name, outs, one):
+    """Each process's output equals one process's (``one``: its "out",
+    "ref" (native's or the golden) and "err"), its stderr less the one join
+    line and the --timings report too, and its counters."""
+    want_err = before_timings(one["err"])
+    for r, (o, err) in enumerate(outs):
+        lines = err.splitlines(True)
+        kept = [ln for ln in lines if not ln.startswith(JOIN)]
+        if len(lines) - len(kept) != 1:
+            raise AssertionError("%s: process %d printed %d join lines"
+                                 % (name, r, len(lines) - len(kept)))
+        if before_timings("".join(kept)) != want_err:
+            raise AssertionError("%s: process %d's stderr differs from "
+                                 "one process's" % (name, r))
+        if not (same_file(o, one["out"]) and same_file(o, one["ref"])):
+            raise AssertionError("%s: process %d's output differs from "
+                                 "one process's or native's" % (name, r))
+        if counters_of(err) != counters_of(one["err"]):
+            raise AssertionError("%s: process %d's counters %s differ "
+                                 "from one process's" %
+                                 (name, r, counters_of(err)))
+
+
+def phase_mesh(tmp, levels, runs, smi):
+    """Scale-out on the one card.  In process, a mesh of 4 shards of cuda:0:
+    S1 on fam100's and fam500's all pairs bit for bit against D2 unsplit;
+    S3 (fam500's k-mer Gram) and S4 (fam500's +F histogram) against their
+    plain results; fam500 -i 0's 16 level batches (mesh_batches, and the
+    largest batch of fam500 -r -i 0 in phase reroot) over 1, 2 and 4 shards
+    against the unsplit batch, with the dp_device seconds of each split;
+    the dry run (parallel/dryrun.py); c2_fam100 through the CLI with its
+    level mesh set to the 4 shards, golden stdout and stderr, the counts
+    of launches from 0 (``launches_mesh``).  Then each of TWO_PROCESS in
+    two processes of one cluster sharing the card: each process's output
+    and stderr (less the join line) those of the single process and of
+    native or the golden, its counters the single process's."""
+    t0 = time.perf_counter()
+    cuda0 = torch.device("cuda", 0)
+    mesh4 = Mesh((cuda0,) * 4)
+    aa = _load_scoring("aa")
+    go, ge = GAP_PARAMS["aa"]
+    s1_pairs, wall_ms = {}, {}
+    t = lambda a: torch.from_numpy(a).to(cuda0)
+    for name in ("fam100", "fam500"):
+        cm, lens = fasta_codes(FIX + "/%s.fasta" % name)
+        arrs = all_pairs(cm, lens)
+        (counts, gaps), ms = host_ms(
+            lambda: sharded_nw_counts(mesh4, *arrs, aa, go, ge, 20))
+        (c0, g0), ms0 = host_ms(lambda: [
+            x.cpu().numpy() for x in nw_counts(*map(t, arrs), t(aa), go, ge,
+                                               20)])
+        if not (np.array_equal(counts, c0) and np.array_equal(gaps, g0)):
+            raise AssertionError("mesh: S1 on %s's pairs differs from D2 "
+                                 "unsplit" % name)
+        s1_pairs[name] = len(gaps)
+        wall_ms["s1_" + name] = (ms, ms0)
+    seqs, _ = read_fasta(FIX + "/fam500.fasta")
+    enc = {n: AA_SPEC.encode(q) for n, q in seqs.items()}
+    kc, _ = kmer_counts(AA_SPEC, enc, sorted(enc), AA_SPEC.kmer_k)
+    kc = kc.astype(np.float32)
+    full_float32()
+    gram, ms = host_ms(lambda: sharded_gram(mesh4, kc))
+    gram0, ms0 = host_ms(lambda: (lambda C: torch.matmul(C, C.T))(
+        t(kc)).cpu().numpy())
+    if not np.array_equal(gram, gram0):
+        raise AssertionError("mesh: S3 differs from one float32 product")
+    wall_ms["s3"] = (ms, ms0)
+    vals = [AA_SPEC.values(q) for q in enc.values()]
+    V = np.full((len(vals), max(map(len, vals))), -1, np.int32)
+    for i, v in enumerate(vals):
+        V[i, :len(v)] = v
+    want, ms0 = host_ms(lambda: np.bincount(V[(V >= 0) & (V < 20)],
+                                            minlength=20))
+    hist, ms = host_ms(lambda: sharded_freq_hist(mesh4, V, 20))
+    if not np.array_equal(hist, want):
+        raise AssertionError("mesh: S4 differs from numpy's count")
+    wall_ms["s4"] = (ms, ms0)
+    secs = mesh_batches(levels, cuda0, shard_meshes(cuda0), turns=2)
+    big = runs["r_fam500_i0"]["mesh"]
+    port_dryrun.dryrun(mesh4)
+    say("mesh:card", t0, shards=4, s1_pairs=json.dumps(s1_pairs),
+        s1="bit-identical", s3="identical", s4="identical",
+        wall_ms_split_unsplit=json.dumps(
+            {k: "%.3f/%.3f" % v for k, v in wall_ms.items()},
+            separators=(",", ":")),
+        levels_fam500=len(levels), dryrun="OK",
+        dp_device_s_levels_fam500=json.dumps(secs, separators=(",", ":")),
+        root_search_batch_pairs=big["pairs"],
+        dp_device_s_root_search_batch=json.dumps(big["dp_device_s"],
+                                                 separators=(",", ":")),
+        card=repr(smi))
+
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "c2_mesh.fasta")
+    orig = engine_policy.level_mesh
+    engine_policy.level_mesh = lambda device: mesh4
+    _build.reset_launches()
+    try:
+        err, ctr = run_port(["--fasta", "--mldist", "--nwdist",
+                             FIX + "/fam100.fasta", "--engine", "torch",
+                             "--device", "cuda", "--timings", "-o", out])
+    finally:
+        engine_policy.level_mesh = orig
+    launches = dict(_build.LAUNCHES)
+    if not same_file(out, GOLD + "/c2_fam100.fasta"):
+        raise AssertionError("c2_fam100 over the mesh differs from the "
+                             "golden")
+    with open(GOLD + "/c2_fam100.stderr") as f:
+        if before_timings(err) != f.read():
+            raise AssertionError("c2_fam100 over the mesh: stderr differs "
+                                 "from the golden")
+    check_counters(ctr, "c2_fam100 over the mesh")
+    if ctr != counters_of(runs["c2_fam100"]["err"]):
+        raise AssertionError("c2_fam100 over the mesh: counters %s differ "
+                             "from one shard's" % ctr)
+    if not all(launches[k] > 0 for k in DP_KERNELS + ("nw",)):
+        raise AssertionError("c2_fam100 over the mesh: a kernel was not "
+                             "launched: %s" % launches)
+    say("mesh:c2_fam100", t0, shards=4, golden="stdout+stderr",
+        launches_mesh=json.dumps(launches, separators=(",", ":")))
+
+    for name, args in TWO_PROCESS:
+        t0 = time.perf_counter()
+        one = runs[name]
+        wall, outs = processes(name, args, tmp)
+        check_processes(name, outs, one)
+        note("== %s, process 0 of 2 --timings" % name, outs[0][1])
+        say("mesh:2proc", t0, run=name, identical="stdout+stderr+counters",
+            wall_2proc_s="%.3f" % wall, wall_1proc_s="%.3f" % one["wall"],
+            dp_device_s="%s/%s" % (timing_of(outs[0][1], "dp_device"),
+                                   timing_of(one["err"], "dp_device")),
+            distances_s="%s/%s" % (timing_of(outs[0][1], "distances"),
+                                   timing_of(one["err"], "distances")),
+            card=repr(smi))
+    return launches
 
 
 def time_cuda(fn, reps, warm=True):
@@ -1803,9 +2078,12 @@ def main():
     with tempfile.TemporaryDirectory(dir=OUT) as tmp:
         launches, launches_c2, largest = phase_fam100(dev, tmp)
         phase_corpus(tmp)
-        launches_reroot = phase_reroot(tmp)
-        phase_walls(tmp)
-        launches500, root, sum500, sum500_dev = phase_levels(dev, tmp)
+        runs = {}
+        launches_reroot = phase_reroot(tmp, runs)
+        phase_walls(tmp, runs)
+        launches500, root, sum500, sum500_dev, levels500 = phase_levels(
+            dev, tmp)
+        launches_mesh = phase_mesh(tmp, levels500, runs, smi)
         res_nw, rates = phase_nw(dev)
         res_ps, res_pack, rates_ps = phase_pair_stats(dev, (
             ("c2_fam100", GOLD + "/c2_fam100.fasta"),
@@ -1830,6 +2108,7 @@ def main():
                "launches_fam500": launches500[k],
                "launches_reroot_fam100": launches_reroot["r_t_fam100"][k],
                "launches_reroot_fam500": launches_reroot["r_fam500_i0"][k],
+               "launches_mesh": launches_mesh[k],
                "max_abs_err": max_err[k],
                "ms_fam500_levels_sum": sum500[k],
                "device_ms_fam500_levels_sum": sum500_dev[k],
@@ -1860,6 +2139,7 @@ def main():
         kern.append(row)
     # the distance kernels: launches from the free-tree run (c2_fam100)
     kern.append(dist_row("nw", launches_c2, res_nw, "fam100"))
+    kern[-1]["launches_mesh"] = launches_mesh["nw"]
     kern.append(dist_row("pair_pack", launches_c2, res_pack, "c2_fam100"))
     kern.append(dist_row("pair_stats", launches_c2, res_ps, "c2_fam100"))
     for row in kern[-2:]:    # D1 on the re-trees of the free-tree -r run

@@ -36,7 +36,7 @@ import torch
 from .. import timings
 from .backtrack import mark_alternative_path
 from .chase_cuda import (META_FAIL_CHASE, META_FAIL_REP, META_LEN,
-                         META_SCORE, N_META, chase)
+                         META_SCORE, N_META, chase, row_width)
 from .fill_cuda import FillPlan, card_limits, fill, plan_fill
 from .scores_cuda import exact_s
 from .slots import (COST_INF, EV_CAP, MAX_N, MAX_OFF, TIERS,
@@ -201,12 +201,24 @@ def _launches(preps):
     return out
 
 
-def align_pairs_device(items, device):
+def align_pairs_device(items, device, mesh=None):
     """Align a batch of (g1, g2, model, scores) on ``device`` (kernels on
-    CUDA, their plain versions on the CPU).  Returns, per pair,
+    CUDA, their plain versions on the CPU), or split over the shards of
+    ``mesh`` (parallel/mesh.py).  Returns, per pair,
     (mapping1, mapping2, score, n_tr_indels) or None (host fallback).
     Under --timings: dp_prep (slot tables), dp_device (packing, copies,
-    kernels and the one fetch per launch) and dp_harvest."""
+    kernels, the one fetch per launch and, across processes, the gather of
+    the rows) and dp_harvest.
+
+    Over a mesh every process preps every pair; the size-sorted pairs are
+    dealt round the global shards, each local shard's share is cut into
+    launches and packed for its device, every launch is issued before any
+    fetch (distinct cards overlap), and every process gathers all rows and
+    harvests all pairs, so results and counters are those of one process
+    and one shard."""
+    from ..parallel.mesh import Mesh
+
+    mesh = mesh or Mesh((device,))
     results = [None] * len(items)
     _fallback_stats["pairs_total"] += len(items)
     preps = []
@@ -218,16 +230,56 @@ def align_pairs_device(items, device):
             else:
                 preps.append(p)
     with timings.phase("dp_device"):
-        launched = []
-        for chunk in _launches(preps):
-            bt = pack_pairs(chunk, device)
-            launched.append((chunk, run_batch(bt), bt.Lm))
-        fetched = [(chunk, packed.cpu().numpy(), Lm)
-                   for chunk, packed, Lm in launched]
+        fetched = _gather_rows(_launch_shares(preps, mesh), preps, mesh)
     with timings.phase("dp_harvest"):
         for chunk, packed, Lm in fetched:
             _harvest(chunk, packed, Lm, results)
     return results
+
+
+def _launch_shares(preps, mesh):
+    """Each local shard's share of the size-sorted ``preps`` (dealt round
+    the global shards) in launches on its device; every launch issued,
+    then each fetched once: [(chunk, packed rows, Lm)]."""
+    from ..parallel.mesh import deal, on_device
+
+    order = sorted(preps, key=lambda p: -(p.g1.size + p.g2.size))
+    launched = []
+    for dev, share in mesh.local(deal(len(order), mesh.size)):
+        with on_device(dev):
+            for chunk in _launches([order[k] for k in share]):
+                bt = pack_pairs(chunk, dev)
+                launched.append((chunk, run_batch(bt), bt.Lm))
+    return [(chunk, packed.cpu().numpy(), Lm)
+            for chunk, packed, Lm in launched]
+
+
+def _gather_rows(fetched, preps, mesh):
+    """Every process's launches (chunks, rows, Lm) in rank order: the
+    pairs' indices, (pairs, Lm) per launch and the rows, each one
+    ``all_gather`` of int32.  Alone, ``fetched`` as it is."""
+    if mesh.world == 1:
+        return fetched
+    from ..parallel.distributed import all_gather
+
+    idx = np.array([p.idx for chunk, _, _ in fetched for p in chunk],
+                   np.int32)
+    cuts = np.array([v for chunk, _, Lm in fetched for v in (len(chunk), Lm)],
+                    np.int32)
+    rows = (np.concatenate([packed.reshape(-1) for _, packed, _ in fetched])
+            if fetched else np.zeros(0, np.int32))
+    by_idx = {p.idx: p for p in preps}
+    out = []
+    for idx_r, cuts_r, rows_r in zip(all_gather(idx), all_gather(cuts),
+                                     all_gather(rows)):
+        at = k = 0
+        for n, Lm in cuts_r.reshape(-1, 2).tolist():
+            width = n * row_width(Lm)
+            out.append(([by_idx[i] for i in idx_r[k:k + n].tolist()],
+                        rows_r[at:at + width].reshape(n, -1), Lm))
+            at += width
+            k += n
+    return out
 
 
 def _harvest(chunk, packed, Lm, results):

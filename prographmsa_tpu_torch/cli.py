@@ -144,14 +144,25 @@ def options_from_args(args) -> Options:
     return opt.with_codon_rescaling(**defaults)
 
 
-def do_align(seqs: Dict[str, str], options, device, engine: str = "torch"):
+def do_align(seqs: Dict[str, str], options, device, engine: str = "torch",
+             mesh=None):
     """doAlign<ALPHABET> (main.cpp:324-483) over the port's level driver.
     ``options`` carries ``engine="native"`` for the host layers; ``engine``
     is the port's engine policy and ``device`` the torch device of its card
-    stages, or None with ``native``.
+    stages, or None with ``native``.  First joins the process group when
+    PROGRAPHMSA_DIST=1 (parallel/distributed.py).  ``mesh`` splits the DP
+    batches (levels, root search, refinement) and the NW distances over its
+    shards; None takes ``engine_policy.level_mesh(device)``, which is None
+    on one card outside a process group.
 
     Returns (aligned {name: str}, all_trees [PhyTree])."""
     from .engine.level_driver import progressive_alignment_batched
+    from .engine_policy import level_mesh
+    from .parallel import distributed
+
+    distributed.maybe_initialize(device)
+    if mesh is None:
+        mesh = level_mesh(device)
 
     spec = al.get_alphabet(options)
 
@@ -213,7 +224,7 @@ def do_align(seqs: Dict[str, str], options, device, engine: str = "torch"):
                 tree = parse_newick(fh.read())
         else:
             tree = tree_nj(spec, seqs2, False, factory, options, topo,
-                           device, engine)
+                           device, engine, mesh)
         all_trees = [tree.copy()]
         old_aligned = None
         start_i = 0
@@ -238,7 +249,7 @@ def do_align(seqs: Dict[str, str], options, device, engine: str = "torch"):
                 csprofile.prime_profiles(leaves, engine, device)
         return progressive_alignment_batched(spec, seqs2, tr, reps,
                                              csprofile, factory, options,
-                                             device, engine)
+                                             device, engine, mesh)
 
     result = None
     for i in range(start_i, options.iters):
@@ -251,7 +262,7 @@ def do_align(seqs: Dict[str, str], options, device, engine: str = "torch"):
         if i > 0 and _aligned_equal(result.aligned_sequences, old_aligned):
             break
         tree = tree_nj(spec, result.aligned_sequences, True, factory,
-                       options, topo, device, engine)
+                       options, topo, device, engine, mesh)
         all_trees.append(tree.copy())
         old_aligned = result.aligned_sequences
         if ckpt is not None:
@@ -262,7 +273,7 @@ def do_align(seqs: Dict[str, str], options, device, engine: str = "torch"):
             from .engine.find_root import progressive_alignment_find_root
             result = progressive_alignment_find_root(
                 spec, seqs2, tree, reps, csprofile, factory, options, device,
-                engine)
+                engine, mesh)
         else:
             result = _progressive(tree)
 

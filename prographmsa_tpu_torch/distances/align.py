@@ -8,7 +8,9 @@ The port's copy of prographmsa_tpu/distances/align.py.  The batched fill
 + backtrack runs on the card as kernel D2 (distances/nw_cuda.py) when the
 engine policy says so, else on the threaded native host kernel
 (``native.nw_counts_native``); both give exact integers.  On the card a
-failure raises: there is no retry on the host.  The host-backtrack oracle
+failure raises: there is no retry on the host, nor, over a mesh, from the
+shards to one card (a failed shard raises in its process, and its peers on
+the process group's timeout).  The host-backtrack oracle
 of the JAX package (``_batched_W``, ``_make_scan``) is not ported.
 """
 
@@ -42,13 +44,16 @@ def _seq_codes(spec, seq: np.ndarray) -> np.ndarray:
 
 def compute_nw_distances(spec, seqs: Dict[str, np.ndarray], order: List[str],
                          factory, options, device=None,
-                         engine: str = "native", batch_pairs: int = 0):
+                         engine: str = "native", batch_pairs: int = 0,
+                         mesh=None):
     """All-pairs NW distances: counts and gap openings of every pair, in
     chunks, then the ML distance per pair on the host.  On the card
-    (``engine_policy.use_device_nw``) the codes go up once, a chunk is one
-    launch of D2 sized by its scratch (or ``batch_pairs``), and the host's
-    ML Newton of a chunk overlaps the next chunk's kernel; on the host a
-    chunk is ``batch_pairs`` (2048) pairs of the native kernel."""
+    (``engine_policy.use_device_nw``) the codes go up once to each shard's
+    device, a chunk (``batch_pairs``, else as many pairs as each shard's
+    launch of D2 holds in its scratch) is split over the shards of ``mesh``
+    (parallel/mesh.py; None: ``device`` alone), and the host's ML Newton of
+    a chunk overlaps the next chunk's kernels; on the host a chunk is
+    ``batch_pairs`` (2048) pairs of the native kernel."""
     from .. import native, timings
     from ..engine_policy import use_device_nw
 
@@ -87,12 +92,15 @@ def compute_nw_distances(spec, seqs: Dict[str, np.ndarray], order: List[str],
     if not P:
         return distances, variances
     if use_device_nw(engine, P, L, spec.DIM):
-        if device is None:
+        if device is None and mesh is None:
             raise ValueError("engine %r runs NW on the card: pass its "
                              "device" % engine)
+        from ..parallel.mesh import Mesh
         from .nw_cuda import pairs_per_pass
-        _nw_on_card(cmat, lens, pi, pj, scoring, go, ge, spec.DIM, device,
-                    batch_pairs or pairs_per_pass(L, L, device), finish)
+        mesh = mesh or Mesh((device,))
+        _nw_on_card(cmat, lens, pi, pj, scoring, go, ge, spec.DIM, mesh,
+                    batch_pairs or pairs_per_pass(L, L, mesh.devices[0])
+                    * mesh.size, finish)
         return distances, variances
     chunk = batch_pairs or 2048
     for s in range(0, P, chunk):
@@ -107,51 +115,38 @@ def compute_nw_distances(spec, seqs: Dict[str, np.ndarray], order: List[str],
     return distances, variances
 
 
-def _nw_on_card(cmat, lens, pi, pj, scoring, go, ge, dim, device, chunk,
+def _nw_on_card(cmat, lens, pi, pj, scoring, go, ge, dim, mesh, chunk,
                 finish):
-    """D2 over the pairs in chunks: each chunk's counts come back by an
-    asynchronous copy, and ``finish`` (the host ML) of a chunk runs while
-    the next chunk's kernel does."""
+    """D2 over the pairs in chunks, each chunk's pairs split over the
+    shards of ``mesh`` (a one-shard mesh: the run's device): each shard's
+    counts come back by an asynchronous copy, every process gathers every
+    shard's, and ``finish`` (the host ML) of a chunk runs while the next
+    chunk's kernels do."""
     import torch
 
+    from ..parallel.sharded import gather_split, launch_split
     from .nw_cuda import nw_counts
 
-    dev = torch.device(device)
-    cm = torch.from_numpy(cmat).to(dev)
-    ln = torch.from_numpy(lens).to(dev)
-    sc = torch.from_numpy(scoring).to(dev)
     score_range = (int(scoring.min()), int(scoring.max()))
-    pit = torch.from_numpy(pi.astype(np.int64)).to(dev)
-    pjt = torch.from_numpy(pj.astype(np.int64)).to(dev)
+    uploads = {}
+
+    def run(dev, lo, hi):
+        if dev not in uploads:
+            uploads[dev] = [torch.from_numpy(a).to(dev) for a in (
+                cmat, lens, scoring, pi.astype(np.int64), pj.astype(np.int64))]
+        cm, ln, sc, pit, pjt = uploads[dev]
+        a, b = pit[lo:hi], pjt[lo:hi]
+        return nw_counts(cm[a], cm[b], ln[a], ln[b], sc, go, ge, dim,
+                         score_range=score_range)
+
+    outs = (((dim, dim), np.int32), ((), np.int32))
     pending = None
     for s in range(0, len(pi), chunk):
-        a, b = pit[s:s + chunk], pjt[s:s + chunk]
-        out = _fetch_async(nw_counts(cm[a], cm[b], ln[a], ln[b], sc, go, ge,
-                                     dim, score_range=score_range))
+        out = launch_split(
+            mesh, min(chunk, len(pi) - s),
+            lambda dev, idx, s=s: run(dev, s + int(idx[0]),
+                                      s + int(idx[-1]) + 1))
         if pending is not None:
-            finish(pending[0], *_fetched(pending[1]))
+            finish(pending[0], *gather_split(pending[1], outs))
         pending = (slice(s, s + chunk), out)
-    finish(pending[0], *_fetched(pending[1]))
-
-
-def _fetch_async(tensors):
-    """Start copying CUDA tensors into pinned host memory; CPU tensors are
-    returned as they are."""
-    import torch
-
-    if tensors[0].device.type != "cuda":
-        return tensors, None
-    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            for t in tensors]
-    for h, t in zip(host, tensors):
-        h.copy_(t, non_blocking=True)
-    ev = torch.cuda.Event()
-    ev.record()
-    return host, ev
-
-
-def _fetched(out):
-    host, ev = out
-    if ev is not None:
-        ev.synchronize()
-    return [h.numpy() for h in host]
+    finish(pending[0], *gather_split(pending[1], outs))

@@ -213,14 +213,16 @@ class BatchedRootSearch:
     through ``align_tasks``, and then prints the TR lines (--repeats) that
     the recursion would have printed, in its order."""
 
-    def __init__(self, factory, options, spec, device, engine, pool):
+    def __init__(self, factory, options, spec, device, engine, pool,
+                 mesh=None):
         self.factory, self.options, self.spec = factory, options, spec
         self.device, self.engine, self.pool = device, engine, pool
+        self.mesh = mesh
         self.printed = set()
 
     def _align(self, tasks):
         return align_tasks(tasks, self.factory, self.options, self.spec,
-                           self.device, self.engine, self.pool)
+                           self.device, self.engine, self.pool, self.mesh)
 
     def align_edges(self, edges):
         missing, seen = [], set()
@@ -292,10 +294,10 @@ class BatchedRootSearch:
 
 def progressive_alignment_find_root(spec, sequences, tree, repeats,
                                     csprofile, factory, options, device=None,
-                                    engine: str = "torch"
+                                    engine: str = "torch", mesh=None
                                     ) -> ProgressiveAlignmentResult:
     """FindRoot.h:234-337, with every alignment batched through
-    ``BatchedRootSearch`` (``device``/``engine`` as in the level
+    ``BatchedRootSearch`` (``device``/``engine``/``mesh`` as in the level
     scheduler): ``-r`` computes all edges' alignments, ``-r -r`` the edges
     each step of its hill climb reads."""
     _nodes, edges = tree_graph(spec, sequences, tree, repeats, csprofile,
@@ -303,7 +305,7 @@ def progressive_alignment_find_root(spec, sequences, tree, repeats,
     gap_code = spec.gap_code
     with HostPool() as pool:
         search = BatchedRootSearch(factory, options, spec, device, engine,
-                                   pool)
+                                   pool, mesh)
         if options.reroot_flag == 1:
             search.align_edges(edges)
         else:

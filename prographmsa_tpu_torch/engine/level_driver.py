@@ -69,11 +69,15 @@ class HostPool:
             self.pool.shutdown(wait=True)
 
 
-def align_items(items, options, device, engine, pool):
+def align_items(items, options, device, engine, pool, mesh=None):
     """One ``AlignmentResult`` per (g1, g2, model, scores) item: the batch
-    on ``device`` when ``engine`` sends the items' cells there
-    (engine_policy.use_torch_dp), the host ``align_graphs`` for the rest
-    and for every pair the batch hands back."""
+    on ``device``, or split over the shards of ``mesh``
+    (engine_policy.level_mesh), when ``engine`` sends the items' cells
+    there (engine_policy.use_torch_dp), the host ``align_graphs`` for the
+    rest and for every pair the batch hands back.  Called from the
+    scheduler's main thread only, never from ``pool``: over processes the
+    batch issues collectives, which every process must reach in one
+    order."""
     if not items:
         return []
     batch = [None] * len(items)
@@ -84,7 +88,7 @@ def align_items(items, options, device, engine, pool):
                       else "torch_levels_host")
     if on_card:
         before = graph_dp_cuda.fallback_stats()
-        batch = graph_dp_cuda.align_pairs_device(items, device)
+        batch = graph_dp_cuda.align_pairs_device(items, device, mesh)
         after = graph_dp_cuda.fallback_stats()
         for k, v in after.items():
             if v > before[k]:
@@ -104,7 +108,8 @@ def align_items(items, options, device, engine, pool):
     return alns
 
 
-def align_tasks(tasks, factory, options, spec, device, engine, pool):
+def align_tasks(tasks, factory, options, spec, device, engine, pool,
+                mesh=None):
     """Align and merge independent nodes, each task
     (r1, r2, distance1, distance2, support1, support2) as
     ``align_progressive_results`` takes them: models and cleaning on the
@@ -118,7 +123,7 @@ def align_tasks(tasks, factory, options, spec, device, engine, pool):
         model, _m1, _m2, cg1, _o1, cg2, _o2 = pre
         items.append((cg1, cg2, model, DynProgScores(cg1, cg2, model,
                                                      options)))
-    alns = align_items(items, options, device, engine, pool)
+    alns = align_items(items, options, device, engine, pool, mesh)
     out = [None] * len(tasks)
 
     def merge(ks):
@@ -154,11 +159,11 @@ def _collect_nodes(tree):
 
 def progressive_alignment_batched(spec, sequences, tree, repeats, csprofile,
                                   factory, options, device=None,
-                                  engine: str = "torch"):
+                                  engine: str = "torch", mesh=None):
     """Level-batched progressive alignment; ``device`` (a torch.device)
-    runs the DP batch of each level that ``engine`` sends there, None keeps
-    every pair on the host.  Equal to the sequential
-    ``progressive_alignment``, refinement included."""
+    runs the DP batch of each level that ``engine`` sends there, split over
+    ``mesh`` where one is given; None keeps every pair on the host.  Equal
+    to the sequential ``progressive_alignment``, refinement included."""
     nodes = _collect_nodes(tree)
     index = {id(t): i for i, (t, _c0, _c1) in enumerate(nodes)}
     results = [None] * len(nodes)
@@ -183,13 +188,13 @@ def progressive_alignment_batched(spec, sequences, tree, repeats, csprofile,
                               t[1].branch_length, t[0].branch_support,
                               t[1].branch_support))
             aligned = align_tasks(tasks, factory, options, spec, device,
-                                  engine, pool)
+                                  engine, pool, mesh)
             for i, (res, ntr) in zip(ready, aligned):
                 results[i] = res
                 tr_counts[i] = ntr
             if options.earlyref_flag:
                 _refine_level(ready, nodes, results, index, factory, options,
-                              spec, device, engine, pool)
+                              spec, device, engine, pool, mesh)
             done = set(ready)
             pending = [i for i in pending if i not in done]
 
@@ -205,7 +210,7 @@ def progressive_alignment_batched(spec, sequences, tree, repeats, csprofile,
 
 
 def _refine_level(ready, nodes, results, index, factory, options, spec,
-                  device, engine, pool):
+                  device, engine, pool, mesh=None):
     """The early refinement of every node of a level: all its re-alignments
     in one ``align_items`` batch, then each node's incremental merges over
     ``pool``; the refined result replaces the node's, where its parent and
@@ -221,7 +226,7 @@ def _refine_level(ready, nodes, results, index, factory, options, spec,
         g1 = results[i].graph
         items += [(g1, r.graph, m, DynProgScores(g1, r.graph, m, options))
                   for r, m in zip(old_results, models)]
-    alns = align_items(items, options, device, engine, pool)
+    alns = align_items(items, options, device, engine, pool, mesh)
 
     def merge(ks):
         for k in ks:

@@ -129,7 +129,7 @@ def use_device_nw(engine: str, n_pairs: int = 0, L: int = 0,
     fetch_mb = n_pairs * (dim * dim * 4.0 + 4.0) / 1e6
     dev = (cells / NW_DEVICE_RATE + launches * c["roundtrip_s"]
            + fetch_mb / c["fetch_mbps"])
-    nat = cells / (NW_NATIVE_RATE * _host_threads())
+    nat = cells / (NW_NATIVE_RATE * c.get("host_threads", _host_threads()))
     return dev < nat
 
 
@@ -178,10 +178,46 @@ def cells_threshold() -> float:
     return max(float(MIN_LEVEL_CELLS), NATIVE_CELLS_PER_SEC * fixed * 2.0)
 
 
+def level_mesh(device):
+    """The mesh a run on ``device`` splits its DP batches and NW chunks
+    over (parallel/mesh.py): the global mesh in a process group
+    (PROGRAPHMSA_DIST=1), every visible card where ``device`` is CUDA and
+    more than one card is visible, else None (one card, or the host: the
+    unsplit batch)."""
+    if device is None:
+        return None
+    import torch
+
+    from .parallel import distributed
+    if distributed.active():
+        return distributed.mesh_for(device)
+    if torch.device(device).type == "cuda" and torch.cuda.device_count() > 1:
+        from .parallel.mesh import make_mesh
+        return make_mesh()
+    return None
+
+
 @functools.lru_cache(maxsize=1)
 def calibration() -> dict:
     """The round trip (seconds) and fetch rate (MB/s) between this host and
-    the card, probed once per process.  A probe persisted in the port's
+    the card, probed once per process (``_calibrate``).  In a process group
+    process 0 probes and every process takes its values and its host's
+    thread count: ``auto`` then routes every level and stage alike in every
+    process, which the collectives of a split batch need."""
+    from .parallel import distributed
+
+    if distributed.world() == 1:
+        return _calibrate()
+    mine = (_calibrate() if distributed.rank() == 0
+            else {"roundtrip_s": 0.0, "fetch_mbps": 0.0})
+    rt, mbps, threads = distributed.broadcast(
+        (mine["roundtrip_s"], mine["fetch_mbps"], _host_threads()))
+    return {"roundtrip_s": rt, "fetch_mbps": mbps,
+            "host_threads": int(threads)}
+
+
+def _calibrate() -> dict:
+    """This process's calibration.  A probe persisted in the port's
     ``.build/`` is taken when its values are in range, it was taken on the
     same card, and a cheap spot check of the round trip agrees within 3x;
     otherwise the full probe runs and is persisted."""

@@ -26,14 +26,14 @@ from ..engine_policy import use_device_angle
 
 def compute_distances(spec, seqs: Dict[str, np.ndarray], order: List[str],
                       factory, options, prealigned: bool, device=None,
-                      engine: str = "native"):
+                      engine: str = "native", mesh=None):
     if prealigned:
         return compute_prealigned_distances(spec, seqs, order, factory,
                                             options, device, engine)
     if options.nwdist_flag:
         from ..distances.align import compute_nw_distances
         return compute_nw_distances(spec, seqs, order, factory, options,
-                                    device, engine)
+                                    device, engine, mesh=mesh)
     if use_device_angle(engine):
         return compute_angle_distances_device(spec, seqs, order, options,
                                               device)
@@ -42,7 +42,7 @@ def compute_distances(spec, seqs: Dict[str, np.ndarray], order: List[str],
 
 def tree_nj(spec, seqs: Dict[str, np.ndarray], prealigned: bool, factory,
             options, topo: Optional[PhyTree] = None, device=None,
-            engine: str = "native") -> PhyTree:
+            engine: str = "native", mesh=None) -> PhyTree:
     if len(seqs) < 2:
         raise ValueError("cannot construct tree from < 2 sequences")
 
@@ -50,7 +50,7 @@ def tree_nj(spec, seqs: Dict[str, np.ndarray], prealigned: bool, factory,
     with timings.phase("distances"):
         distances, variances = compute_distances(spec, seqs, order, factory,
                                                  options, prealigned, device,
-                                                 engine)
+                                                 engine, mesh)
         distances = np.array(distances)
         variances = np.array(variances)
         np.fill_diagonal(distances, 0.0)
