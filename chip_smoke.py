@@ -25,10 +25,15 @@ rates engine_policy.py holds.  Phase ``mesh`` (phase_mesh) holds the
 scale-out on the one card: the split programs and the level and
 root-search batches over 1, 2 and 4 shards of cuda:0 against the unsplit
 work, c2_fam100 through the CLI over 4 shards (its launches are the
-kernels line's ``launches_mesh``), and three runs in two processes of one
-cluster sharing the card against one process.  Every phase raises on
-failure; there is no
-CPU fallback.  One line per phase, then one JSON line of kernels, the
+kernels line's ``launches_mesh``), S3's and S4's card time beside their
+bounds, and three runs in two processes of one cluster sharing the card
+against one process.  Phase ``resume`` (phase_resume) runs
+``--checkpoint_dir``: c2_fam100 resumed as a process of its own (no
+distances, no NJ), fam100 --mldist --nwdist stopped inside iteration 1 and
+resumed in process with its launches read from zero (the kernels line's
+``launches_resume``: D1 and the DP kernels, no D2), and fam500 -T -i 0
+under two engines on one directory.  Every phase raises on failure; there
+is no CPU fallback.  One line per phase, then one JSON line of kernels, the
 card's name and power limit, and last {"ok": true, "device": {...}}.  Long
 output goes to the directory ``OUT`` below.
 
@@ -112,9 +117,10 @@ from prographmsa_tpu_torch.distances.prealigned import _pair_stats_batch_host
 from prographmsa_tpu_torch.distances.prealigned_cuda import (
     count_dtype, pair_pack, pair_pack_torch, pair_stats, pair_stats_torch,
     words)
+from prographmsa_tpu_torch.engine import level_driver
 from prographmsa_tpu_torch.io.fasta import read_fasta
 from prographmsa_tpu_torch.parallel import dryrun as port_dryrun
-from prographmsa_tpu_torch.parallel.mesh import Mesh
+from prographmsa_tpu_torch.parallel.mesh import Mesh, split
 from prographmsa_tpu_torch.parallel.sharded import (sharded_freq_hist,
                                                     sharded_gram,
                                                     sharded_nw_counts)
@@ -856,6 +862,134 @@ def phase_walls(tmp, runs):
     say("startup", t0, **startup)
 
 
+class Interrupted(Exception):
+    """Raised inside a run to stop it where an interruption would."""
+
+
+def interrupted_run(argv, at_pass):
+    """The port's do_align on ``argv`` (the CLI's flags), stopped by
+    Interrupted on its ``at_pass``-th progressive pass."""
+    orig = level_driver.progressive_alignment_batched
+    passes = [0]
+
+    def stopping(*a, **kw):
+        passes[0] += 1
+        if passes[0] == at_pass:
+            raise Interrupted
+        return orig(*a, **kw)
+
+    args = port_cli.build_parser().parse_args(argv)
+    opts = port_cli.options_from_args(args).replace(engine="native")
+    seqs, _ = read_fasta(opts.sequence_file)
+    level_driver.progressive_alignment_batched = stopping
+    try:
+        port_cli.do_align(seqs, opts, torch.device(args.device), args.engine)
+    except Interrupted:
+        return
+    finally:
+        level_driver.progressive_alignment_batched = orig
+    raise AssertionError("%s was not interrupted" % argv)
+
+
+def phase_resume(tmp, runs, smi):
+    """--checkpoint_dir on the card.  (a) c2_fam100 as a process of its
+    own with a checkpoint directory, then again on it: both golden, stdout
+    and stderr; the second with no ``distances`` and no ``nj`` in its
+    --timings and its final pass on the card.  (b) fam100 --mldist
+    --nwdist in process, stopped on its second progressive pass (inside
+    iteration 1), then run again on its directory with the launch counts
+    from 0 (the resumed path's ``launches_resume``): golden, the DP
+    kernels and D1 launched, D2 not (the first tree came from the state).
+    (c) fam500 -T -i 0 under --engine device and then --engine torch on one
+    directory, each against its own fresh run on the card; whether the two
+    engines' trees differ is printed."""
+    t0 = time.perf_counter()
+    ck = os.path.join(tmp, "ck_c2_fam100")
+    walls, errs = {}, {}
+    for run in ("first", "resumed"):
+        out = os.path.join(tmp, "c2_fam100.resume_" + run)
+        walls[run], err = cli_wall(WALLS[2][1], out, (
+            "--engine", "torch", "--device", "cuda", "--timings",
+            "--checkpoint_dir", ck))
+        errs[run] = err
+        note("== c2_fam100 --checkpoint_dir, %s run --timings" % run, err)
+        if not same_file(out, GOLD + "/c2_fam100.fasta"):
+            raise AssertionError("resume: c2_fam100's %s run differs from "
+                                 "the golden" % run)
+        with open(GOLD + "/c2_fam100.stderr") as f:
+            if before_timings(err) != f.read():
+                raise AssertionError("resume: c2_fam100's %s run: stderr "
+                                     "differs from the golden" % run)
+        ctr = counters_of(err)
+        check_counters(ctr, "c2_fam100 %s run" % run)
+        if not ctr.get("torch_pairs_device"):
+            raise AssertionError("resume: c2_fam100's %s run put no pair on "
+                                 "the card" % run)
+    skipped = [k for k in ("distances", "nj")
+               if timing_of(errs["resumed"], k) is not None]
+    if skipped:
+        raise AssertionError("resume: the resumed c2_fam100 ran %s"
+                             % skipped)
+    say("resume:c2_fam100", t0, golden="stdout+stderr", first_s="%.3f"
+        % walls["first"], resumed_s="%.3f" % walls["resumed"],
+        walls_c2_fam100_s="%.3f" % runs["c2_fam100"]["wall"],
+        first_distances_s=timing_of(errs["first"], "distances"),
+        first_nj_s=timing_of(errs["first"], "nj"),
+        resumed_pairs_device=counters_of(errs["resumed"])[
+            "torch_pairs_device"], card=repr(smi))
+
+    t0 = time.perf_counter()
+    ck = os.path.join(tmp, "ck_fam100")
+    argv = ["--fasta", "--mldist", "--nwdist", FIX + "/fam100.fasta",
+            "--engine", "torch", "--device", "cuda", "--timings",
+            "--checkpoint_dir", ck]
+    t1 = time.perf_counter()
+    interrupted_run(argv, 2)
+    w_stop = time.perf_counter() - t1
+    out = os.path.join(tmp, "fam100.resumed")
+    t1 = time.perf_counter()
+    _build.reset_launches()
+    err, ctr = run_port(argv + ["-o", out])
+    launches = dict(_build.LAUNCHES)
+    w_resumed = time.perf_counter() - t1
+    note("== fam100 --mldist --nwdist resumed in iteration 1 --timings", err)
+    if not same_file(out, GOLD + "/c2_fam100.fasta"):
+        raise AssertionError("resume: the interrupted fam100 run, resumed, "
+                             "differs from the golden")
+    check_counters(ctr, "fam100 resumed")
+    if launches["nw"] or not all(launches[k] > 0 for k in
+                                 DP_KERNELS + ("pair_pack", "pair_stats")):
+        raise AssertionError("resume: the resumed run launched %s (D2 "
+                             "none, every other kernel)" % launches)
+    say("resume:fam100", t0, golden=True, stopped_s="%.3f" % w_stop,
+        resumed_s="%.3f" % w_resumed,
+        launches=json.dumps(launches, separators=(",", ":")),
+        card=repr(smi))
+
+    t0 = time.perf_counter()
+    ck = os.path.join(tmp, "ck_fam500")
+    trees, walls = {}, {}
+    for engine in ("device", "torch"):
+        for ckpt in ((), ("--checkpoint_dir", ck)):
+            name = "fam500_T_%s%s" % (engine, "_ck" if ckpt else "")
+            out = os.path.join(tmp, name)
+            t1 = time.perf_counter()
+            run_port(["-T", "-i", "0", FIX + "/fam500.fasta", "--engine",
+                      engine, "--device", "cuda", "-o", out, *ckpt])
+            walls[name] = "%.3f" % (time.perf_counter() - t1)
+            with open(out) as f:
+                trees[name] = f.read()
+        if trees["fam500_T_%s_ck" % engine] != trees["fam500_T_" + engine]:
+            raise AssertionError("resume: fam500 -T -i 0 under --engine %s "
+                                 "on the directory differs from its fresh "
+                                 "run" % engine)
+    say("resume:engines", t0, each_its_own_fresh_tree=True,
+        device_tree_differs_from_torch=trees["fam500_T_device"]
+        != trees["fam500_T_torch"], walls_s=json.dumps(walls),
+        card=repr(smi))
+    return launches
+
+
 def before_timings(err):
     """stderr without the --timings report at its end."""
     return err.split("timings (wall seconds")[0]
@@ -1207,6 +1341,18 @@ def phase_mesh(tmp, levels, runs, smi):
     if not np.array_equal(gram, gram0):
         raise AssertionError("mesh: S3 differs from one float32 product")
     wall_ms["s3"] = (ms, ms0)
+    # the card's share of S3: the 4 shards' products, and the one product
+    W = t(kc)
+    rows = [torch.as_tensor(i, device=cuda0) for i in split(len(kc), 4)]
+    s_dev = {"s3_device_ms": device_time(
+        lambda: [torch.matmul(W[i], W.T) for i in rows], 20),
+        "s3_unsplit_device_ms": device_time(lambda: torch.matmul(W, W.T),
+                                            20)}
+    # an N x K by K x N product: N * N * K fused multiply-adds, two
+    # operations each at F32_FLOPS; the counts read once, the Gram written
+    s_dev["s3_bound_ms"], s_dev["s3_bound_by"] = bound_of_rates(
+        kc.nbytes + 4 * len(kc) ** 2,
+        2 * len(kc) ** 2 * kc.shape[1] / F32_FLOPS)
     vals = [AA_SPEC.values(q) for q in enc.values()]
     V = np.full((len(vals), max(map(len, vals))), -1, np.int32)
     for i, v in enumerate(vals):
@@ -1217,6 +1363,16 @@ def phase_mesh(tmp, levels, runs, smi):
     if not np.array_equal(hist, want):
         raise AssertionError("mesh: S4 differs from numpy's count")
     wall_ms["s4"] = (ms, ms0)
+    # the card's share of S4: each shard's mask and count.  The mask's
+    # gather syncs with the host, so no graph captures it: CUDA events
+    # round a loop of the 4 shards' operations
+    Vd = [t(np.ascontiguousarray(V[i])) for i in split(len(V), 4)]
+    s_dev["s4_ms"] = time_cuda(lambda: [torch.bincount(
+        r[(r >= 0) & (r < 20)].long(), minlength=20) for r in Vd], 20)
+    # two compares a value, one count a valid one, at the int32 rate
+    s_dev["s4_bound_ms"], s_dev["s4_bound_by"] = bound_of_rates(
+        V.nbytes + 20 * 8,
+        (2 * V.size + int(((V >= 0) & (V < 20)).sum())) / INT32_OPS_S)
     secs = mesh_batches(levels, cuda0, shard_meshes(cuda0), turns=2)
     big = runs["r_fam500_i0"]["mesh"]
     port_dryrun.dryrun(mesh4)
@@ -1230,7 +1386,7 @@ def phase_mesh(tmp, levels, runs, smi):
         root_search_batch_pairs=big["pairs"],
         dp_device_s_root_search_batch=json.dumps(big["dp_device_s"],
                                                  separators=(",", ":")),
-        card=repr(smi))
+        s3_s4=json.dumps(s_dev, separators=(",", ":")), card=repr(smi))
 
     t0 = time.perf_counter()
     out = os.path.join(tmp, "c2_mesh.fasta")
@@ -1773,7 +1929,13 @@ def ops_ms(ops):
 
 
 def bound_of(by, ops):
-    tb, to = by / HBM_BYTES_S * 1e3, ops_ms(ops)
+    return bound_of_rates(by, ops_ms(ops) / 1e3)
+
+
+def bound_of_rates(by, ops_s):
+    """(bound ms, what bounds it) of ``by`` bytes moved and ``ops_s``
+    seconds of operations at their rate."""
+    tb, to = by / HBM_BYTES_S * 1e3, ops_s * 1e3
     return max(tb, to), "bytes" if tb >= to else "operations"
 
 
@@ -2081,6 +2243,7 @@ def main():
         runs = {}
         launches_reroot = phase_reroot(tmp, runs)
         phase_walls(tmp, runs)
+        launches_resume = phase_resume(tmp, runs, smi)
         launches500, root, sum500, sum500_dev, levels500 = phase_levels(
             dev, tmp)
         launches_mesh = phase_mesh(tmp, levels500, runs, smi)
@@ -2109,6 +2272,7 @@ def main():
                "launches_reroot_fam100": launches_reroot["r_t_fam100"][k],
                "launches_reroot_fam500": launches_reroot["r_fam500_i0"][k],
                "launches_mesh": launches_mesh[k],
+               "launches_resume": launches_resume[k],
                "max_abs_err": max_err[k],
                "ms_fam500_levels_sum": sum500[k],
                "device_ms_fam500_levels_sum": sum500_dev[k],
@@ -2145,6 +2309,8 @@ def main():
     for row in kern[-2:]:    # D1 on the re-trees of the free-tree -r run
         row["launches_reroot_free_fam100"] = \
             launches_reroot["r_fam100"][row["name"]]
+    for row in kern[-3:]:    # the resumed free tree: D1, no D2
+        row["launches_resume"] = launches_resume[row["name"]]
     print(json.dumps({"kernels": kern}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -210,8 +210,9 @@ def do_align(seqs: Dict[str, str], options, device, engine: str = "torch",
     ckpt = state = None
     if options.checkpoint_dir:
         from .checkpoint import PhaseCheckpoint
-        ckpt = PhaseCheckpoint(options, seqs)
+        ckpt = PhaseCheckpoint(options, seqs, engine)
         state = ckpt.load()
+        ckpt.agree(state)
 
     if state is not None:
         tree = state["tree"]

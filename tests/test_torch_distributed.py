@@ -2,7 +2,10 @@
 distributed.py) on the CPU: disabled, a one-process cluster under both
 sets of topology names, and a real two-process ``gloo`` cluster on
 localhost that splits S1, S4 and the DP batch over both processes' shards
-and runs the port's CLI in both, each against one process and the golden.
+and runs the port's CLI in both, each against one process and the golden,
+also with one ``--checkpoint_dir`` shared by both processes (written by
+process 0, resumed by both) and with one per process (states that differ
+raise in both).
 The JAX package's counterpart is tests/test_distributed2.py.
 """
 
@@ -238,3 +241,68 @@ def test_two_process_cli_free_tree(tmp_path):
         assert _counters(err) == alone
         with open(tmp_path / ("out%d" % r)) as f:
             assert f.read() == golden
+
+
+def _phases(err):
+    """The phase names of a --timings report."""
+    report = err.split("timings (wall seconds")[1].split("counters:")[0]
+    return {ln.split()[0] for ln in report.splitlines()[1:] if ln.strip()}
+
+
+def test_two_process_cli_checkpoint(tmp_path):
+    """fam20 --mldist --nwdist in two processes sharing one
+    --checkpoint_dir: both golden, one state file (process 0's) and no
+    temporary file left; run again, both resume (no distances, no NJ) and
+    are golden again, with every pair of the final pass on --device."""
+    ck = str(tmp_path / "ck")
+    args = ["-m", "prographmsa_tpu_torch.cli", "--fasta", "--mldist",
+            "--nwdist", "--device", "cpu", "--timings", "--checkpoint_dir",
+            ck, FIX + "/fam20.fasta"]
+    with open(os.path.join(G, "c2_fam20.fasta")) as f:
+        golden = f.read()
+    with open(os.path.join(G, "c2_fam20.stderr")) as f:
+        golden_err = f.read()
+    for run in ("first", "resumed"):
+        port = _free_port()
+        outs = _run_all([([sys.executable, *args, "-o",
+                           str(tmp_path / ("%s%d" % (run, r)))],
+                          _dist_env(port, r)) for r in (0, 1)], timeout=600)
+        for r, (rc, _out, err) in enumerate(outs):
+            assert rc == 0, err[-3000:]
+            lines = [ln for ln in err.splitlines(True)
+                     if not ln.startswith(JOIN)]
+            assert "".join(lines).split("timings (wall seconds")[0] \
+                == golden_err, (run, r)
+            with open(tmp_path / ("%s%d" % (run, r))) as f:
+                assert f.read() == golden, (run, r)
+            ctr = _counters(err)
+            assert ctr["torch_pairs_device"] == ctr["torch_pairs_total"] > 0
+            phases = _phases(err)
+            if run == "resumed":
+                assert not phases & {"distances", "nj"}, (r, phases)
+            else:
+                assert {"distances", "nj"} <= phases, (r, phases)
+        assert os.listdir(ck) == ["phase_state_torch.pkl"], os.listdir(ck)
+
+
+def test_two_process_differing_states_raise(tmp_path):
+    """Each process its own --checkpoint_dir, only process 0's filled: both
+    processes exit non-zero naming the mismatch, and neither waits for the
+    other (``_run_all``'s timeout)."""
+    args = ["-m", "prographmsa_tpu_torch.cli", "--fasta", "--device", "cpu",
+            FIX + "/fam6.fasta"]
+    dirs = [str(tmp_path / ("ck%d" % r)) for r in (0, 1)]
+    ((rc, _out, err),) = _run_all([([sys.executable, *args,
+                                     "--checkpoint_dir", dirs[0], "-o",
+                                     str(tmp_path / "alone")], _env())],
+                                  timeout=300)
+    assert rc == 0, err[-3000:]
+    port = _free_port()
+    outs = _run_all([([sys.executable, *args, "--checkpoint_dir", dirs[r],
+                       "-o", str(tmp_path / ("out%d" % r))],
+                      _dist_env(port, r)) for r in (0, 1)], timeout=300)
+    for r, (rc, _out, err) in enumerate(outs):
+        assert rc != 0, (r, err[-3000:])
+        assert "the processes found different states (i_next by rank, -1 " \
+               "for none: [2, -1])" in err, (r, err[-3000:])
+    assert os.listdir(dirs[1]) == []
