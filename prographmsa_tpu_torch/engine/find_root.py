@@ -41,7 +41,8 @@ from typing import List
 import numpy as np
 from ..errors import ParityError
 
-from .gap_parsimony import score_alignment
+from .. import timings
+from .gap_parsimony import score_alignments
 from .level_driver import HostPool, align_tasks
 from .progressive import (ProgressiveAlignmentResult,
                           align_progressive_results,
@@ -299,7 +300,8 @@ def progressive_alignment_find_root(spec, sequences, tree, repeats,
     """FindRoot.h:234-337, with every alignment batched through
     ``BatchedRootSearch`` (``device``/``engine``/``mesh`` as in the level
     scheduler): ``-r`` computes all edges' alignments, ``-r -r`` the edges
-    each step of its hill climb reads."""
+    each step of its hill climb reads; each such set is scored in one
+    ``score_alignments`` pass (``--timings`` phase ``root_score``)."""
     _nodes, edges = tree_graph(spec, sequences, tree, repeats, csprofile,
                                factory, options)
     gap_code = spec.gap_code
@@ -311,20 +313,21 @@ def progressive_alignment_find_root(spec, sequences, tree, repeats,
         else:
             search.align_edges(edges[:1])
 
-        best_result = edges[0].get_alignment(factory, options, spec)
-        best_score = score_alignment(best_result, edges[0], gap_code)
-
         if options.reroot_flag == 1:
-            for e in edges[1:]:
-                result = e.get_alignment(factory, options, spec)
-                score = score_alignment(result, e, gap_code)
-                if score < best_score:
-                    best_result = result
-                    best_score = score
+            # every edge scored in one pass; the first of equal scores wins
+            with timings.phase("root_score"):
+                scores = score_alignments(edges, gap_code)
+            best = min(range(len(edges)), key=scores.__getitem__)
+            best_result = edges[best].alignment
+            best_score = scores[best]
         else:
             # heuristic: hill-climb over edges adjacent to the current best
             # (FindRoot.h:291-320); a step's edges are fixed by its start,
-            # so they are aligned in one go and then scored in order
+            # so they are aligned and scored in one go, then compared in
+            # order
+            best_result = edges[0].alignment
+            with timings.phase("root_score"):
+                best_score = score_alignments(edges[:1], gap_code)[0]
             best_node = None
             best_edge = edges[0]
             while True:
@@ -334,11 +337,12 @@ def progressive_alignment_find_root(spec, sequences, tree, repeats,
                         for e in n.edges
                         if e is not old_edge and e is not None]
                 search.align_edges([e for _n, e in step])
-                for n, e in step:
-                    result = e.get_alignment(factory, options, spec)
-                    score = score_alignment(result, e, gap_code)
+                with timings.phase("root_score"):
+                    scores = score_alignments([e for _n, e in step],
+                                              gap_code)
+                for (n, e), score in zip(step, scores):
                     if score < best_score:
-                        best_result = result
+                        best_result = e.alignment
                         best_edge = e
                         best_score = score
                         best_node = n

@@ -19,7 +19,8 @@ REPO = os.path.abspath(REPO)
 PORT = os.path.join(REPO, "prographmsa_tpu_torch")
 SOURCES = sorted(glob.glob(os.path.join(PORT, "**", "*.py"), recursive=True))
 SOURCES += [os.path.join(REPO, name) for name in
-            ("chip_smoke.py", "k3_sweep.py", "k1_x1_probe.py")]
+            ("chip_smoke.py", "k3_sweep.py", "k1_x1_probe.py",
+             "root_score_time.py")]
 
 FAM20 = [
     ("t_fam20.fasta", ["--fasta", "-t", G + "/tree0_fam20.nwk",
