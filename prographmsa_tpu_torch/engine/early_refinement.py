@@ -21,7 +21,7 @@ from typing import List
 
 from ..align.merge import merge_graphs_incremental
 from .progressive import (ProgressiveAlignmentResult, align_graphs,
-                          extend_alignment, extend_tr_homologies)
+                          extend_children)
 
 
 def refinement_inputs(old_result, tree, factory, options, result_of):
@@ -117,12 +117,7 @@ def refine(old_result, old_results, models, alns, spec):
             i += 1
 
     result.graph = anc_graph
-    for i in range(n_results):
-        extend_alignment(result, mappings[i], old_results[i].aligned_sequences,
-                         spec.gap_code)
-        extend_tr_homologies(result, mappings[i],
-                             old_results[i].tr_homologies,
-                             old_results[i].tr_source)
+    extend_children(result, list(zip(mappings, old_results)), spec.gap_code)
     result.graph.add_repeats(result.tr_homologies)
     return result
 

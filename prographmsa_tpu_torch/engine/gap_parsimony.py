@@ -22,6 +22,8 @@ from typing import List
 
 import numpy as np
 
+from .progressive import gap_flags
+
 # alignments packed into one pass while their words stay within this many
 # (rows x words x 8 bytes x 2 planes: 16 MB at a thousand rows; all of
 # fam500's 997 root alignments at once would take 512 MB, and ran slower)
@@ -67,27 +69,47 @@ class _Schedule:
         self.root = tuple(row[id(n)] for n in root_edge.nodes)
 
 
+def _pack_gaps(flags, words, buf):
+    """``flags`` (columns x rows, bool) in ``words`` uint64 words a row, as
+    a (8 * words, rows) uint8 array: with B = 8 * words bytes, bit j of
+    byte b is column j * B + b, and bits past the last column read as
+    character.  Any one order of the columns serves, the same for every
+    row: Fitch scores each column on its own, and an alignment's words are
+    summed whole.  ``flags`` is the front of the uint8 scratch ``buf``,
+    which holds at least 64 * words * rows bytes."""
+    w, n = flags.shape
+    size = 64 * words * n
+    buf[w * n:size] = 0
+    # eight slabs of B columns, each byte 0 or 1: shift and or eight bytes
+    # a word
+    v = buf[:size].view(np.uint64).reshape(8, -1)
+    packed = v[0].copy()
+    bit = np.empty_like(packed)
+    for j in range(1, 8):
+        np.left_shift(v[j], j, out=bit)
+        packed |= bit
+    return packed.view(np.uint8).reshape(8 * words, n)
+
+
 def _gap_words(alignments, leaves, gap_code):
     """The gap plane of ``alignments``' leaf rows, one block of whole
     uint64 words each (padding reads as character), and each block's first
     word."""
     widths = [len(a.aligned_sequences[leaves[0]]) for a in alignments]
+    words = [(w + 63) // 64 for w in widths]
     start = np.zeros(len(alignments) + 1, dtype=np.intp)
-    np.cumsum([(w + 63) // 64 for w in widths], out=start[1:])
-    gap = np.zeros((len(leaves), 8 * int(start[-1])), dtype=np.uint8)
-    # one flat copy of the rows into buffers reused across the alignments
-    # (np.stack's per-row views, and a fresh buffer's page faults, cost
-    # more than the copy itself)
-    rows = np.empty(len(leaves) * max(widths), dtype=np.int16)
-    is_gap = np.empty(rows.size, dtype=bool)
-    for a, w, s in zip(alignments, widths, start):
-        n = len(leaves) * w
-        np.concatenate([a.aligned_sequences[x] for x in leaves],
-                       out=rows[:n])
-        np.equal(rows[:n], gap_code, out=is_gap[:n])
-        packed = np.packbits(is_gap[:n].reshape(len(leaves), w), axis=1,
-                             bitorder="little")
-        gap[:, 8 * s:8 * s + packed.shape[1]] = packed
+    np.cumsum(words, out=start[1:])
+    gap = np.empty((len(leaves), 8 * int(start[-1])), dtype=np.uint8)
+    # one scratch buffer reused across the alignments (a fresh buffer's
+    # page faults cost more than the packing itself)
+    buf = np.empty(0, dtype=np.uint8)
+    for a, nw, s in zip(alignments, words, start):
+        need = 64 * nw * max(len(a.aligned_sequences), len(leaves))
+        if buf.size < need:
+            buf = np.empty(need, dtype=np.uint8)
+        flags, at = gap_flags(a, leaves, gap_code, buf)
+        packed = _pack_gaps(flags, nw, buf)
+        gap[:, 8 * s:8 * (s + nw)] = packed[:, at].T
     return gap.view(np.uint64), start
 
 

@@ -12,6 +12,7 @@ same alignments in batches on the device and are held against it.
 
 from __future__ import annotations
 
+import operator
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -37,6 +38,8 @@ class ProgressiveAlignmentResult:
     score: float = 0.0
     n_tr_indels: int = 0
     is_csprofile: bool = False
+    # the extended rows together (extend_children); see row_block
+    block: Optional["RowBlock"] = None
 
 
 def align_graphs(g1: Graph, g2: Graph, model, options,
@@ -83,39 +86,113 @@ def align_graphs(g1: Graph, g2: Graph, model, options,
     return aln, scores
 
 
-def extend_alignment(result, mapping, aligned_sequences, gap_code):
-    """Gap-extend descendant sequences through the merged graph
-    (ProgressiveAlignment.h:245-264).  One stacked scatter for the whole
-    sequence set (a deep node carries ~N sequences; per-name loops were a
-    measurable slice of the fixed-tree wall)."""
-    n = result.graph.size
-    hit = np.asarray(mapping[1:n - 1]) != -1
-    k = int(np.count_nonzero(hit))   # trailing originals beyond the last
-    names = list(aligned_sequences)  # mapped column drop
-    if not names:
-        return
-    if len(names) == 1:
-        original = aligned_sequences[names[0]]
-        extended = np.full(n - 2, gap_code, dtype=np.int16)
-        extended[hit] = original[:k]
-        result.aligned_sequences[names[0]] = extended
-        return
-    block = np.full((len(names), n - 2), gap_code, dtype=np.int16)
-    block[:, hit] = np.stack([aligned_sequences[nm][:k] for nm in names])
-    for r, nm in enumerate(names):
-        result.aligned_sequences[nm] = block[r]
+class RowBlock:
+    """A result's extended rows in one array: ``cols[c, r]`` is column c of
+    row ``names[r]``, so a child's column is one contiguous run of its
+    rows and extending a child copies whole columns.  ``rows`` are the
+    views of it that the result's ``aligned_sequences`` was given."""
+
+    __slots__ = ("cols", "names", "rows")
+
+    def __init__(self, cols, names):
+        self.cols = cols
+        self.names = names
+        self.rows = list(cols.T)
+
+    def row_index(self, names):
+        """The rows of ``names``, in their order."""
+        at = {nm: r for r, nm in enumerate(self.names)}
+        return np.array([at[nm] for nm in names], dtype=np.intp)
 
 
-def extend_tr_homologies(result, mapping, tr_homologies, tr_source):
-    """ProgressiveAlignment.h:266-287."""
+def row_block(result):
+    """``result``'s RowBlock while its ``aligned_sequences`` holds exactly
+    the block's rows, in the block's order; else None (a leaf, or a dict
+    that gained, lost or replaced a row since the block was made)."""
+    b = getattr(result, "block", None)
+    rows = result.aligned_sequences
+    if (b is None or len(rows) != len(b.names)
+            or not all(map(operator.is_, rows.values(), b.rows))
+            or list(rows) != b.names):
+        return None
+    return b
+
+
+def gap_flags(result, names, gap_code, out):
+    """The gap flags of ``result``'s rows as a (columns, rows) bool view of
+    the front of the uint8 buffer ``out``, and the rows of ``names`` in it,
+    in that order: the result's block whole while it holds its rows, else
+    the rows ``names`` read one by one.  ``out`` holds at least columns x
+    max(len(result.aligned_sequences), len(names)) bytes."""
+    b = row_block(result)
+    if b is not None:
+        cols, at = b.cols, b.row_index(names)
+    else:
+        rows = result.aligned_sequences
+        cols = _read_rows({nm: rows[nm] for nm in names}, None)
+        at = np.arange(len(names))
+    flags = out[:cols.size].view(bool).reshape(cols.shape)
+    np.equal(cols, gap_code, out=flags)
+    return flags, at
+
+
+def _hit(result, mapping):
+    """The merged graph's columns that ``mapping`` maps (a boolean mask
+    over the result's columns)."""
     n = result.graph.size
-    hit = np.asarray(mapping[1:n - 1]) != -1
-    k = int(np.count_nonzero(hit))
-    for original, source in zip(tr_homologies, tr_source):
-        extended = np.full(n - 2, -1, dtype=np.int64)
-        extended[hit] = original[:k]
-        result.tr_homologies.append(extended)
-        result.tr_source.append(source)
+    return np.array(mapping[1:n - 1], dtype=np.intp) != -1
+
+
+def _read_rows(rows, k):
+    """The first ``k`` columns of the rows of the dict ``rows``, read one
+    by one into an array laid out as a RowBlock's ``cols``."""
+    if len(rows) == 1:
+        return np.asarray(next(iter(rows.values())))[:k, None]
+    return np.stack([r[:k] for r in rows.values()], axis=1)
+
+
+def _extend_into(dest, hit, src, gap_code):
+    """Gap-extend rows through the merged graph into ``dest`` (laid out as
+    a RowBlock's ``cols``): ``src``'s first k columns (k = the mapped
+    count; trailing originals beyond the last mapped column drop) to the
+    mapped columns, gaps to the rest."""
+    at = np.flatnonzero(hit)
+    dest[at] = src[:len(at)]
+    dest[np.flatnonzero(~hit)] = gap_code
+
+
+def extend_children(result, children, gap_code):
+    """Gap-extend each (mapping, child result) of ``children`` in turn
+    through the merged graph (ProgressiveAlignment.h:245-287): the
+    children's rows into one new RowBlock of ``result``, one copy of whole
+    columns a child (from the child's own block where that still holds its
+    rows), then their TR homologies."""
+    with timings.phase("extend"):
+        hits = [_hit(result, mapping) for mapping, _child in children]
+        names = []
+        for _mapping, child in children:
+            names += child.aligned_sequences
+        cols = np.empty((result.graph.size - 2, len(names)), dtype=np.int16)
+        r0 = 0
+        for hit, (_mapping, child) in zip(hits, children):
+            rows = child.aligned_sequences
+            if not rows:
+                continue
+            b = row_block(child)
+            src = b.cols if b is not None else \
+                _read_rows(rows, int(np.count_nonzero(hit)))
+            _extend_into(cols[:, r0:r0 + len(rows)], hit, src, gap_code)
+            r0 += len(rows)
+        result.block = RowBlock(cols, names)
+        result.aligned_sequences.update(zip(names, result.block.rows))
+        for hit, (_mapping, child) in zip(hits, children):
+            k = int(np.count_nonzero(hit))
+            for original, source in zip(child.tr_homologies,
+                                        child.tr_source):
+                extended = np.full(len(hit), -1, dtype=np.int64)
+                extended[hit] = original[:k]
+                result.tr_homologies.append(extended)
+                result.tr_source.append(source)
 
 
 def create_ancestral_seq_name(aligned_sequences) -> str:
@@ -222,11 +299,8 @@ def align_progressive_results(r1, r2, distance1, distance2, support1,
                          options)
     result.graph = anc.graph
 
-    gap_code = spec.gap_code
-    extend_alignment(result, anc.mapping1, r1.aligned_sequences, gap_code)
-    extend_alignment(result, anc.mapping2, r2.aligned_sequences, gap_code)
-    extend_tr_homologies(result, anc.mapping1, r1.tr_homologies, r1.tr_source)
-    extend_tr_homologies(result, anc.mapping2, r2.tr_homologies, r2.tr_source)
+    extend_children(result, ((anc.mapping1, r1), (anc.mapping2, r2)),
+                    spec.gap_code)
 
     if options.ancestral_flag:
         if len(r1.aligned_sequences) > 1:

@@ -6,8 +6,9 @@ scored by this tree's ``score_alignments`` (one call for all edges) and,
 with --parent DIR, by DIR's ``score_alignment`` edge by edge, as DIR's
 ``find_root.py`` called it.  DIR is the root of another checkout of this
 repository (e.g. a ``git archive`` of the parent commit unpacked into the
-gitignored ``_parent/``); only its ``engine/gap_parsimony.py`` is loaded.
-The two lists of scores must be equal.
+gitignored ``_parent/``); its ``engine/gap_parsimony.py`` is loaded as a
+module of DIR's own package, under another name, so that the modules it
+imports are DIR's too.  The two lists of scores must be equal.
 
     python3 root_score_time.py [--parent DIR] [--repeat N] CLI_ARGS...
 
@@ -65,12 +66,15 @@ def main():
 
     parent = None
     if args.parent:
-        path = os.path.join(args.parent, "prographmsa_tpu_torch", "engine",
-                            "gap_parsimony.py")
+        pkg = os.path.join(args.parent, "prographmsa_tpu_torch")
         mod_spec = importlib.util.spec_from_file_location(
-            "parent_gap_parsimony", path)
-        parent = importlib.util.module_from_spec(mod_spec)
-        mod_spec.loader.exec_module(parent)
+            "parent_prographmsa_tpu_torch", os.path.join(pkg, "__init__.py"),
+            submodule_search_locations=[pkg])
+        sys.modules[mod_spec.name] = importlib.util.module_from_spec(
+            mod_spec)
+        mod_spec.loader.exec_module(sys.modules[mod_spec.name])
+        parent = importlib.import_module(mod_spec.name +
+                                         ".engine.gap_parsimony")
 
     def timed(fn):
         t = time.perf_counter()
