@@ -21,7 +21,10 @@ byte for byte, with both walls, the DP batches' sizes and the launches of
 K1, K2, K3, X1 and D1.  Phase ``walls`` also runs ``--engine auto``
 (golden; the levels it sent to the card) and ``--engine device`` (whether
 fam500 equals native, reported); ``rates`` prints the calibration and the
-rates engine_policy.py holds.  Phase ``mesh`` (phase_mesh) holds the
+rates engine_policy.py holds.  Phase ``start`` holds ``walls``' fresh
+processes of t_fam100 and fam500 ``-i 0`` against their goldens and prints
+their walls, their import of torch (``card_start``) and fam500's wait for
+its first guide tree, built in a process of its own (``tree_wait``).  Phase ``mesh`` (phase_mesh) holds the
 scale-out on the one card: the split programs and the level and
 root-search batches over 1, 2 and 4 shards of cuda:0 against the unsplit
 work, c2_fam100 through the CLI over 4 shards (its launches are the
@@ -763,6 +766,13 @@ def timing_of(err, name):
     return float(m.group(1)) if m else None
 
 
+def tree_phase(err, name):
+    """Seconds of the guide trees' phase ``name``: those in the process,
+    plus those of a first tree built apart (``name``_apart, first_tree.py)."""
+    here, apart = timing_of(err, name), timing_of(err, name + "_apart")
+    return here if apart is None else "%s+%s_apart" % (here or 0, apart)
+
+
 def counters_of(err):
     return {ln.split()[0]: int(ln.split()[1]) for ln in
             err.split("counters:")[-1].strip().splitlines()}
@@ -815,9 +825,9 @@ def phase_walls(tmp, runs):
         say(name, t0, port_s="%.3f" % w_port, native_s="%.3f" % w_nat,
             identical=True, pairs_device=ctr["torch_pairs_device"],
             pairs_total=ctr["torch_pairs_total"],
-            distances_s="%s/%s" % (timing_of(err, "distances"),
+            distances_s="%s/%s" % (tree_phase(err, "distances"),
                                    timing_of(err_nat, "distances")),
-            nj_s="%s/%s" % (timing_of(err, "nj"), timing_of(err_nat, "nj")),
+            nj_s="%s/%s" % (tree_phase(err, "nj"), timing_of(err_nat, "nj")),
             **{k: ctr.get("torch_" + k, 0) for k in gdp.FALLBACK_KEYS
                if k.startswith("fb_")})
         t0 = time.perf_counter()
@@ -860,6 +870,36 @@ def phase_walls(tmp, runs):
                        timeout=300)
         startup[name] = "%.3f" % (time.perf_counter() - t1)
     say("startup", t0, **startup)
+
+
+def phase_start(runs):
+    """Process start in phase ``walls``' fresh processes of t_fam100 and
+    fam500 -i 0: each output held to its golden, stderr up to the --timings
+    report empty, and printed: the wall, the CLI's import of torch and
+    resolution of the device (``card_start``) and, where the first guide
+    tree was built in a process of its own beside it (first_tree.py;
+    fam500 -i 0, not the fixed tree), the wait for that tree
+    (``tree_wait``) and its ``distances``, apart or not."""
+    t0 = time.perf_counter()
+    got = {}
+    for name, apart in (("t_fam100", False), ("fam500_i0", True)):
+        run = runs[name]
+        if not same_file(run["out"], os.path.join(GOLD, name + ".fasta")):
+            raise AssertionError("%s differs from the golden" % name)
+        err = run["err"]
+        if err.split("timings (wall seconds")[0]:
+            raise AssertionError("%s wrote to stderr:\n%s" % (name, err))
+        start, wait = timing_of(err, "card_start"), timing_of(err,
+                                                             "tree_wait")
+        if start is None or (wait is not None) != apart:
+            raise AssertionError("%s: card_start %s, tree_wait %s in its "
+                                 "--timings report:\n%s"
+                                 % (name, start, wait, err))
+        got.update({name + "_wall_s": "%.3f" % run["wall"],
+                    name + "_card_start_s": start,
+                    name + "_tree_wait_s": wait,
+                    name + "_distances_s": tree_phase(err, "distances")})
+    say("start", t0, golden=True, **got)
 
 
 class Interrupted(Exception):
@@ -2243,6 +2283,7 @@ def main():
         runs = {}
         launches_reroot = phase_reroot(tmp, runs)
         phase_walls(tmp, runs)
+        phase_start(runs)
         launches_resume = phase_resume(tmp, runs, smi)
         launches500, root, sum500, sum500_dev, levels500 = phase_levels(
             dev, tmp)

@@ -29,14 +29,14 @@ from typing import Dict
 import numpy as np
 
 from . import alphabet as al
-from . import timings
+from . import first_tree, timings
 from .config import Options
 from .engine_policy import ENGINES, engine_device
 from .errors import ParityError
-from .io.fasta import FastaError, read_fasta, write_fasta
+from .inputs import encode_input, model_factory, read_topology
+from .io.fasta import FastaError, parse_fasta, read_text, write_fasta
 from .io.newick import parse_newick
 from .io.stockholm import write_stockholm
-from .models.factory import get_default_model_factory
 from .tree.phytree import get_tree_order
 from .tree.treenj import tree_nj
 
@@ -145,7 +145,7 @@ def options_from_args(args) -> Options:
 
 
 def do_align(seqs: Dict[str, str], options, device, engine: str = "torch",
-             mesh=None):
+             mesh=None, apart=None):
     """doAlign<ALPHABET> (main.cpp:324-483) over the port's level driver.
     ``options`` carries ``engine="native"`` for the host layers; ``engine``
     is the port's engine policy and ``device`` the torch device of its card
@@ -153,7 +153,8 @@ def do_align(seqs: Dict[str, str], options, device, engine: str = "torch",
     PROGRAPHMSA_DIST=1 (parallel/distributed.py).  ``mesh`` splits the DP
     batches (levels, root search, refinement) and the NW distances over its
     shards; None takes ``engine_policy.level_mesh(device)``, which is None
-    on one card outside a process group.
+    on one card outside a process group.  ``apart``, a started
+    ``first_tree.Apart``, gives the first guide tree.
 
     Returns (aligned {name: str}, all_trees [PhyTree])."""
     from .engine.level_driver import progressive_alignment_batched
@@ -166,26 +167,10 @@ def do_align(seqs: Dict[str, str], options, device, engine: str = "torch",
 
     spec = al.get_alphabet(options)
 
-    # strip start/stop codons (main.cpp:326-353)
-    any_start_stripped = any_end_stripped = False
-    start_stripped, end_stripped = {}, {}
-    seqs2: Dict[str, np.ndarray] = {}
-    for name in seqs:
-        enc = spec.encode(seqs[name])
-        start_stripped[name] = end_stripped[name] = False
-        if not options.noforcealign_flag:
-            if spec.strip_start is not None and len(enc):
-                if enc[0] == spec.encode(spec.strip_start)[0]:
-                    enc = enc[1:]
-                    any_start_stripped = start_stripped[name] = True
-            if spec.strip_end is not None and len(enc):
-                if spec.name == "codon" and enc[-1] == al.CODON_X:
-                    enc = enc[:-1]
-                    any_end_stripped = end_stripped[name] = True
-        seqs2[name] = enc
-
-    seqs_values = {n: spec.values(s) for n, s in seqs2.items()}
-    factory = get_default_model_factory(options, spec, seqs_values)
+    seqs2, start_stripped, end_stripped = encode_input(seqs, options, spec)
+    any_start_stripped = any(start_stripped.values())
+    any_end_stripped = any(end_stripped.values())
+    factory = model_factory(options, spec, seqs2)
 
     csprofile = None
     if options.cs_file:
@@ -203,10 +188,7 @@ def do_align(seqs: Dict[str, str], options, device, engine: str = "torch",
             reps = align_repeats(seqs2, reps, csprofile, factory, options,
                                  spec)
 
-    topo = None
-    if options.topo_file:
-        with open(options.topo_file) as fh:
-            topo = parse_newick(fh.read())
+    topo = read_topology(options)
     ckpt = state = None
     if options.checkpoint_dir:
         from .checkpoint import PhaseCheckpoint
@@ -223,6 +205,8 @@ def do_align(seqs: Dict[str, str], options, device, engine: str = "torch",
         if options.tree_file:
             with open(options.tree_file) as fh:
                 tree = parse_newick(fh.read())
+        elif apart is not None and apart.started:
+            tree = apart.tree()
         else:
             tree = tree_nj(spec, seqs2, False, factory, options, topo,
                            device, engine, mesh)
@@ -315,18 +299,31 @@ def _aligned_equal(a, b) -> bool:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     options = options_from_args(args).replace(engine="native")
-    try:
-        device = engine_device(args.engine, args.device)
-    except RuntimeError as e:
-        print("error: %s" % e, file=sys.stderr)
-        return 2
-
     if options.timings_flag:
         timings.enable(True)
-
+    # the input is read once, here; its error is reported after the device's
     try:
-        seqs, input_order = read_fasta(options.sequence_file)
-        aligned, all_trees = do_align(seqs, options, device, args.engine)
+        text = read_text(options.sequence_file)
+    except FastaError as e:
+        text = e
+    # the first guide tree is built in a process of its own meanwhile
+    with first_tree.Apart(text, options, args.engine) as apart:
+        try:
+            with timings.phase("card_start"):
+                device = engine_device(args.engine, args.device)
+        except RuntimeError as e:
+            print("error: %s" % e, file=sys.stderr)
+            return 2
+        return _align_and_write(args, options, device, text, apart)
+
+
+def _align_and_write(args, options, device, text, apart) -> int:
+    try:
+        if isinstance(text, FastaError):
+            raise text
+        seqs, input_order = parse_fasta(text)
+        aligned, all_trees = do_align(seqs, options, device, args.engine,
+                                      apart=apart)
         if options.timings_flag:
             timings.report(sys.stderr)
 

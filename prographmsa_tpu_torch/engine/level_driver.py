@@ -29,7 +29,6 @@ import sys
 from concurrent.futures import ThreadPoolExecutor
 
 from .. import native, timings
-from ..align import graph_dp_cuda
 from ..align.backtrack import AlignmentResult
 from ..align.scores import DynProgScores
 from ..engine_policy import use_torch_dp
@@ -87,6 +86,8 @@ def align_items(items, options, device, engine, pool, mesh=None):
         timings.count("torch_levels_device" if on_card
                       else "torch_levels_host")
     if on_card:
+        from ..align import graph_dp_cuda   # imports torch; native does not
+
         before = graph_dp_cuda.fallback_stats()
         batch = graph_dp_cuda.align_pairs_device(items, device, mesh)
         after = graph_dp_cuda.fallback_stats()

@@ -22,11 +22,20 @@ class FastaAbort(Exception):
 
 def read_fasta(path: str) -> Tuple[Dict[str, str], List[str]]:
     """Returns ({name: seq}, input_order). Mirrors FastaLib::readAll."""
+    return parse_fasta(read_text(path))
+
+
+def read_text(path: str) -> str:
+    """The file's text, read once (a pipe or a FIFO can be read once)."""
     try:
         with open(path, "r") as f:
-            text = f.read()
+            return f.read()
     except OSError:
         raise FastaError("error opening file")
+
+
+def parse_fasta(text: str) -> Tuple[Dict[str, str], List[str]]:
+    """``read_fasta`` of a file's text."""
     if not text.startswith(">"):
         raise FastaError("format error")
     seqs: Dict[str, str] = {}

@@ -27,6 +27,10 @@ Where the ``PROGRAPHMSA_*`` topology is unset, torchrun's ``MASTER_ADDR``,
 ``MASTER_PORT``, ``WORLD_SIZE`` and ``RANK`` are read instead (the
 counterpart of ``jax.distributed`` reading a TPU pod's metadata); with
 neither, joining raises.  ``shutdown()`` is registered atexit.
+
+torch is imported by the functions that use it: a run under ``--engine
+native`` asks ``is_enabled``, ``world`` and ``rank`` (cli.py,
+checkpoint.py) and imports no torch.
 """
 
 from __future__ import annotations
@@ -39,7 +43,6 @@ import sys
 import tempfile
 
 import numpy as np
-import torch
 
 from .mesh import Mesh
 
@@ -83,6 +86,8 @@ def local_devices(device) -> tuple:
     """This process's shards for a run on ``device``: every visible card
     for CUDA (one process per card: set CUDA_VISIBLE_DEVICES), the CPU
     once otherwise."""
+    import torch
+
     if device is not None and torch.device(device).type == "cuda":
         return tuple(torch.device("cuda", i)
                      for i in range(torch.cuda.device_count()))
@@ -172,6 +177,7 @@ def all_gather(arr: np.ndarray) -> list:
                          % (arr.dtype, arr.shape))
     if world() == 1:
         return [arr]
+    import torch
     import torch.distributed as dist
 
     n = world()
@@ -191,6 +197,7 @@ def all_reduce_sum(arr: np.ndarray) -> np.ndarray:
     array; alone, the array."""
     if world() == 1:
         return arr
+    import torch
     import torch.distributed as dist
 
     t = torch.from_numpy(np.ascontiguousarray(arr).copy())
@@ -202,6 +209,7 @@ def broadcast(values) -> list:
     """Process 0's float64 ``values``, in every process."""
     if world() == 1:
         return [float(v) for v in values]
+    import torch
     import torch.distributed as dist
 
     t = torch.tensor([float(v) for v in values], dtype=torch.float64)
@@ -223,6 +231,8 @@ def global_mesh(devices) -> Mesh:
 def mesh_for(device) -> Mesh:
     """The global mesh of a run on ``device`` (``local_devices``), made
     once per device type (a collective the first time)."""
+    import torch
+
     kind = torch.device(device).type
     if kind not in _meshes:
         _meshes[kind] = global_mesh(local_devices(device))

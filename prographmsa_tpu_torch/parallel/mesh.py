@@ -14,7 +14,6 @@ import contextlib
 from dataclasses import dataclass
 
 import numpy as np
-import torch
 
 
 @dataclass(frozen=True)
@@ -29,6 +28,8 @@ class Mesh:
     size: int = 0
 
     def __post_init__(self):
+        import torch
+
         object.__setattr__(self, "devices",
                            tuple(torch.device(d) for d in self.devices))
         if not self.size:
@@ -49,6 +50,8 @@ def make_mesh(n_devices: int | None = None, device_type: str = "cuda"
     """A 1-D mesh over the first ``n_devices`` visible cards (every card
     when None); ``device_type="cpu"`` gives ``n_devices`` (default 1) CPU
     shards."""
+    import torch
+
     if device_type == "cpu":
         return Mesh((torch.device("cpu"),) * (n_devices or 1))
     have = torch.cuda.device_count() if torch.cuda.is_available() else 0
@@ -87,6 +90,8 @@ def deal(n: int, shards: int) -> list:
 def fetch_async(tensors):
     """Start copying CUDA tensors into pinned host memory (on the current
     card's stream); CPU tensors are returned as they are."""
+    import torch
+
     if tensors[0].device.type != "cuda":
         return tensors, None
     host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -109,6 +114,8 @@ def fetched(out):
 def on_device(device):
     """A context that makes ``device`` the current card (kernels launch on
     the current card's stream); nothing for the CPU."""
+    import torch
+
     device = torch.device(device)
     if device.type == "cuda":
         return torch.cuda.device(device)

@@ -61,6 +61,30 @@ def counters() -> dict:
     return dict(_counters)
 
 
+def enabled() -> bool:
+    return _enabled
+
+
+def recorded() -> tuple:
+    """(phase seconds, phase calls, counters) so far, for ``merge`` in
+    another process (first_tree.py)."""
+    with _lock:
+        return dict(_acc), dict(_calls), dict(_counters)
+
+
+def merge(rec: tuple, suffix: str) -> None:
+    """Add another process's ``recorded()`` to this process's table, each
+    phase and counter under its name with ``suffix`` added."""
+    acc, calls, ctrs = rec
+    with _lock:
+        for name, t in acc.items():
+            name, n = name + suffix, calls[name]
+            _acc[name] = _acc.get(name, 0.0) + t
+            _calls[name] = _calls.get(name, 0) + n
+        for name, n in ctrs.items():
+            _counters[name + suffix] = _counters.get(name + suffix, 0) + n
+
+
 def report(stream) -> None:
     if not _acc and not _counters:
         return

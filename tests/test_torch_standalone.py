@@ -1,5 +1,6 @@
 """The PyTorch/CUDA port stands alone: no module of prographmsa_tpu_torch/
-and none of chip_smoke.py, k3_sweep.py and k1_x1_probe.py imports ``jax`` or
+and none of the root scripts chip_smoke.py, k3_sweep.py, k1_x1_probe.py,
+root_score_time.py and startup_time.py imports ``jax`` or
 anything of the JAX package ``prographmsa_tpu``, and with both names refused by the import system the
 port's CLI still reproduces the fam20 goldens byte for byte (stdout and
 stderr) on ``--device cpu`` and with its own ``--engine native``.
@@ -20,7 +21,7 @@ PORT = os.path.join(REPO, "prographmsa_tpu_torch")
 SOURCES = sorted(glob.glob(os.path.join(PORT, "**", "*.py"), recursive=True))
 SOURCES += [os.path.join(REPO, name) for name in
             ("chip_smoke.py", "k3_sweep.py", "k1_x1_probe.py",
-             "root_score_time.py")]
+             "root_score_time.py", "startup_time.py")]
 
 FAM20 = [
     ("t_fam20.fasta", ["--fasta", "-t", G + "/tree0_fam20.nwk",
