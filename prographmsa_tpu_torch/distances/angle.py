@@ -18,6 +18,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from .. import native
 
 def kmer_counts(spec, seqs: Dict[str, np.ndarray], order: List[str],
                 k: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -72,18 +73,22 @@ def compute_angle_distances(spec, seqs: Dict[str, np.ndarray],
     ``((D⁻¹·Cᵀ)·C)·D⁻¹`` left-associated): rows are scaled by 1/norm
     *before* the GEMM, and the GEMM accumulates sequentially over k — the
     rounding determines NJ tie-breaks, so this makes guide trees
-    bit-identical to the reference binary."""
+    bit-identical to the reference binary.  The native library's Gram
+    keeps those products and that order of adds."""
     counts, seq_len = kmer_counts(spec, seqs, order, spec.kmer_k)
     C = counts.T                               # [DIM^K, N] like counts2
     sq = (C * C).sum(axis=0)                   # exact integers
     with np.errstate(divide="ignore", invalid="ignore"):
         inv_norm = 1.0 / np.sqrt(sq)
-        scaled = inv_norm[:, None] * C.T       # [N, DIM^K] row-scaled
-        n = len(order)
-        G = np.empty((n, n))
-        for i in range(n):
-            # sequential-k accumulation (cumsum rounds like a scalar loop)
-            G[i, :] = np.cumsum(scaled[i][:, None] * C, axis=0)[-1]
+        G = native.angle_gram_native(counts, inv_norm)
+        if G is None:
+            scaled = inv_norm[:, None] * C.T   # [N, DIM^K] row-scaled
+            n = len(order)
+            G = np.empty((n, n))
+            for i in range(n):
+                # sequential-k accumulation (cumsum rounds like a scalar
+                # loop)
+                G[i, :] = np.cumsum(scaled[i][:, None] * C, axis=0)[-1]
         cos = G * inv_norm[None, :]
     return _distance_transform(cos, seq_len, options)
 

@@ -138,6 +138,12 @@ def lib():
         L.gc_pad_edges.argtypes = [i32, i32, i32, pi32, pi32, pf32,
                                    i32, pi32, pi32, pi32,
                                    pi32, pf32, pu8, pi32]
+        L.gc_angle_gram.restype = None
+        L.gc_angle_gram.argtypes = [i32, i32, pf64, pf64, pf64]
+        L.gc_redux_sum.restype = None
+        L.gc_redux_sum.argtypes = [i32, i32, pf64, i32, pf64]
+        L.gc_bionj.restype = i32
+        L.gc_bionj.argtypes = [i32, pf64, pf64, i32, pi32, pi32, pf64, pf64]
         _lib = L
         return _lib
 
@@ -567,3 +573,42 @@ def nw_counts_native(s1b, s2b, l1, l2, scoring, go, ge, dim):
                   scoring.shape[0], dim, go, ge, n_threads(),
                   _d(counts), _d(gaps))
     return counts, gaps
+
+
+def angle_gram_native(counts, inv_norm):
+    """Native gc_angle_gram: the angle distances' Gram G [n, n] of the
+    k-mer counts [n, K] with each row scaled by ``inv_norm``, bit-identical
+    to distances/angle.py's cumulative sum over k.  None when
+    unavailable."""
+    L = lib()
+    if L is None:
+        return None
+    c = np.ascontiguousarray(counts, dtype=np.float64)
+    inv = np.ascontiguousarray(inv_norm, dtype=np.float64)
+    n, k = c.shape
+    G = np.empty((n, n), dtype=np.float64)
+    L.gc_angle_gram(n, k, _d(c), _d(inv), _d(G))
+    return G
+
+
+def bionj_native(D, V, plan):
+    """Native gc_bionj: BioNJ's joins on D and V ([n, n], n > 3) ->
+    (joins [n - 3, 2] int32, branch lengths [n - 3, 2] float64, the 3 x 3
+    D left), bit-identical to tree/nj.py's loop; ``plan`` is the forced
+    (index1, index2) schedule.  None when unavailable or when a pair of
+    ``plan`` is no pair of the current rows (the numpy loop then meets
+    it)."""
+    L = lib()
+    if L is None:
+        return None
+    n = D.shape[0]
+    Dc = np.ascontiguousarray(D, dtype=np.float64)
+    Vc = np.ascontiguousarray(V, dtype=np.float64)
+    pl = np.ascontiguousarray(np.asarray(plan, dtype=np.int32).reshape(-1, 2))
+    joins = np.empty((n - 3, 2), dtype=np.int32)
+    lens = np.empty((n - 3, 2), dtype=np.float64)
+    d_end = np.empty((3, 3), dtype=np.float64)
+    if L.gc_bionj(n, _d(Dc), _d(Vc), len(pl), _d(pl), _d(joins), _d(lens),
+                  _d(d_end)) < 0:
+        return None
+    return joins, lens, d_end

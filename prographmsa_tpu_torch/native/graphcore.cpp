@@ -1172,4 +1172,329 @@ void gc_merge_node_finish(int32_t n, int32_t E, int32_t* idx, float* cost,
                idx, cost, isrep, units);
 }
 
+// ---------------------------------------------------------------------
+// The angle distances' Gram (distances/angle.py compute_angle_distances):
+// G[i, j] = sum over k of (inv_norm[i] * C[i, k]) * C[j, k], added in
+// increasing k from 0.0, the products and the order of adds of the numpy
+// path's cumulative sum over k.  Every term is >= +0.0, so a k with
+// C[i, k] == 0 adds +0.0 and changes no value: it is skipped.  A row with
+// no k-mers (inv_norm inf) is NaN throughout, inf * 0 as in numpy.
+// counts [n, K] and G [n, n] are row-major.
+void gc_angle_gram(int32_t n, int32_t K, const double* counts,
+                   const double* inv_norm, double* G) {
+  // The columns some row counts, transposed: ct[slot[k] * n + j] = C[j, k].
+  std::vector<char> counted((size_t)K, 0);
+  for (int32_t j = 0; j < n; ++j)
+    for (int32_t k = 0; k < K; ++k)
+      if (counts[(size_t)j * K + k] != 0.0) counted[k] = 1;
+  std::vector<int32_t> slot((size_t)K, -1);
+  int32_t used = 0;
+  for (int32_t k = 0; k < K; ++k)
+    if (counted[k]) slot[k] = used++;
+  std::vector<double> ct((size_t)used * n);
+  for (int32_t j = 0; j < n; ++j) {
+    const double* row = counts + (size_t)j * K;
+    for (int32_t k = 0; k < K; ++k)
+      if (slot[k] >= 0) ct[(size_t)slot[k] * n + j] = row[k];
+  }
+  for (int32_t i = 0; i < n; ++i) {
+    const double* row = counts + (size_t)i * K;
+    double* __restrict g = G + (size_t)i * n;
+    const double inv = inv_norm[i];
+    if (!std::isfinite(inv)) {
+      const double nan_term = inv * row[0];
+      for (int32_t j = 0; j < n; ++j)
+        g[j] = 0.0 + nan_term * counts[(size_t)j * K];
+      continue;
+    }
+    for (int32_t j = 0; j < n; ++j) g[j] = 0.0;
+    for (int32_t k = 0; k < K; ++k) {
+      if (row[k] == 0.0) continue;
+      const double s = inv * row[k];
+      const double* __restrict c = ct.data() + (size_t)slot[k] * n;
+      for (int32_t j = 0; j < n; ++j) g[j] = g[j] + s * c[j];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// BioNJ (tree/nj.py build_nj_tree's loop, from dim = n down to 4).
+namespace {
+typedef double lanes4 __attribute__((vector_size(32)));
+typedef int64_t mask4 __attribute__((vector_size(32)));
+
+inline lanes4 load4(const double* p) {
+  lanes4 x;
+  std::memcpy(&x, p, sizeof x);
+  return x;
+}
+
+// The end of one column's sum after its accumulators, acc's lanes 0-1 the
+// first 2-wide packet accumulator and 2-3 the second.
+inline double redux_end(lanes4 acc, const double* v, int32_t n, int32_t a,
+                        int32_t end, int32_t end2) {
+  double x0 = acc[0] + acc[2], x1 = acc[1] + acc[3];
+  if (end > end2) {
+    x0 = x0 + v[end2];
+    x1 = x1 + v[end2 + 1];
+  }
+  double res = x0 + x1;
+  for (int32_t i = 0; i < a; ++i) res = res + v[i];
+  for (int32_t i = end; i < n; ++i) res = res + v[i];
+  return res;
+}
+
+// Eigen's vectorised sum (eigen_compat._redux_contiguous) of each of the
+// columns v + k * stride, k < count, of n doubles whose aligned body starts
+// at a, into out[k * ostride]: two 2-wide accumulators over the body, their
+// sum, the trailing packet, the lanes' sum, then the peeled head and the
+// tail, each add in that order.  One 4-wide vector holds a column's two
+// accumulators (the same adds, side by side), and four columns go at once
+// so that their chains of adds overlap.
+void redux_columns(const double* v, size_t stride, int32_t count, int32_t n,
+                   int32_t a, double* out, int32_t ostride) {
+  const int32_t body = n - a;
+  const int32_t end = a + body / 2 * 2, end2 = a + body / 4 * 4;
+  if (end - a <= 2) {
+    for (int32_t k = 0; k < count; ++k) {
+      const double* c = v + k * stride;
+      double res = c[0];
+      for (int32_t i = 1; i < n; ++i) res = res + c[i];
+      out[k * ostride] = res;
+    }
+    return;
+  }
+  int32_t k = 0;
+  for (; k + 4 <= count; k += 4) {
+    const double* c0 = v + k * stride;
+    const double *c1 = c0 + stride, *c2 = c1 + stride, *c3 = c2 + stride;
+    lanes4 s0 = load4(c0 + a), s1 = load4(c1 + a), s2 = load4(c2 + a),
+           s3 = load4(c3 + a);
+    for (int32_t i = a + 4; i < end2; i += 4) {
+      s0 = s0 + load4(c0 + i);
+      s1 = s1 + load4(c1 + i);
+      s2 = s2 + load4(c2 + i);
+      s3 = s3 + load4(c3 + i);
+    }
+    out[k * ostride] = redux_end(s0, c0, n, a, end, end2);
+    out[(k + 1) * ostride] = redux_end(s1, c1, n, a, end, end2);
+    out[(k + 2) * ostride] = redux_end(s2, c2, n, a, end, end2);
+    out[(k + 3) * ostride] = redux_end(s3, c3, n, a, end, end2);
+  }
+  for (; k < count; ++k) {
+    const double* c = v + k * stride;
+    lanes4 s0 = load4(c + a);
+    for (int32_t i = a + 4; i < end2; i += 4) s0 = s0 + load4(c + i);
+    out[k * ostride] = redux_end(s0, c, n, a, end, end2);
+  }
+}
+
+// np.maximum(x, lo) for a number lo: a NaN x stays.
+inline double at_least(double x, double lo) { return x < lo ? lo : x; }
+
+// Column c of Q, 0.5 D[r, c] - coef (s_c + s_r) for r < n with +inf at
+// r = c, into q; its least value into *m; whether it holds a NaN.  Without
+// NaNs the least value does not depend on the order of the comparisons,
+// so eight lanes compare side by side.
+bool q_column(const double* col, const double* s, double sc, double coef,
+              int32_t n, int32_t c, double* q, double* m) {
+  const lanes4 half = {0.5, 0.5, 0.5, 0.5}, k = {coef, coef, coef, coef},
+               scv = {sc, sc, sc, sc};
+  const lanes4 inf = {INFINITY, INFINITY, INFINITY, INFINITY};
+  const mask4 lane = {0, 1, 2, 3};
+  lanes4 a = inf, b = inf;
+  mask4 nan = {0, 0, 0, 0};
+  int32_t r = 0;
+  for (; r + 8 <= n; r += 8) {
+    lanes4 x = half * load4(col + r) - k * (scv + load4(s + r));
+    lanes4 y = half * load4(col + r + 4) - k * (scv + load4(s + r + 4));
+    x = lane == (int64_t)(c - r) ? inf : x;
+    y = lane == (int64_t)(c - r - 4) ? inf : y;
+    std::memcpy(q + r, &x, sizeof x);
+    std::memcpy(q + r + 4, &y, sizeof y);
+    a = x < a ? x : a;
+    b = y < b ? y : b;
+    nan |= (x != x) | (y != y);
+  }
+  double least = INFINITY;
+  bool any_nan = false;
+  for (int j = 0; j < 4; ++j) {
+    least = a[j] < least ? a[j] : least;
+    least = b[j] < least ? b[j] : least;
+    any_nan |= nan[j] != 0;
+  }
+  for (; r < n; ++r) {
+    q[r] = r == c ? INFINITY : 0.5 * col[r] - coef * (sc + s[r]);
+    least = q[r] < least ? q[r] : least;
+    any_nan |= q[r] != q[r];
+  }
+  *m = least;
+  return any_nan;
+}
+}  // namespace
+
+// redux_columns over count columns of n doubles, one after another in v.
+void gc_redux_sum(int32_t n, int32_t count, const double* v, int32_t a,
+                  double* out) {
+  redux_columns(v, n, count, n, a, out, 1);
+}
+
+// D and V are [n, n] row-major, n > 3, and are not written.  Step t joins
+// the current rows join[2t] < join[2t + 1] with branch lengths len[2t],
+// len[2t + 1]; the first n_plan steps take plan's pairs in place of the
+// Q matrix's minimum.  The 3 x 3 D left at the end goes to d_end.  Every
+// operation of the numpy loop is kept, in its order (the library is built
+// with -ffp-contract=off), so the joins and lengths are its bits: NJ breaks
+// ties on the last bit.  One thread.  Returns 0, or -1 for a plan's pair
+// that is no pair of the current rows.
+//
+// Layout: dt holds D's columns as rows (dt[c * n + r] = D[r, c], the
+// column sums and the column-major minimum run along them), compacted in
+// place when a row and column go, so that the current rows stay in the
+// numpy order the sums depend on.  V is only read and written by row and
+// column, so it keeps its places and `alive` maps a current row to one.
+int32_t gc_bionj(int32_t n, const double* D, const double* V,
+                 int32_t n_plan, const int32_t* plan, int32_t* join,
+                 double* len, double* d_end) {
+  const double MIN_DIST = 1e-4, MIN_VAR = 1e-5;
+  std::vector<double> dt((size_t)n * n), var(V, V + (size_t)n * n);
+  for (int32_t r = 0; r < n; ++r)
+    for (int32_t c = 0; c < n; ++c)
+      dt[(size_t)c * n + r] = at_least(D[(size_t)r * n + c], MIN_DIST);
+  for (size_t k = 0; k < var.size(); ++k) var[k] = at_least(var[k], MIN_VAR);
+  for (int32_t r = 0; r < n; ++r) {
+    dt[(size_t)r * n + r] = 0.0;
+    var[(size_t)r * n + r] = 0.0;
+  }
+  std::vector<int32_t> alive(n);
+  for (int32_t r = 0; r < n; ++r) alive[r] = r;
+  std::vector<double> sums(n), q(n), nd(n), nv(n);
+  int32_t prev = -1;
+  for (int32_t dim = n, step = 0; dim > 3; --dim, ++step) {
+    if (prev >= 0) {
+      // np.maximum and the zeroed diagonals: only the row and column the
+      // last step wrote are new.
+      const int32_t p = alive[prev];
+      for (int32_t j = 0; j < dim; ++j) {
+        double& a = dt[(size_t)prev * n + j];
+        double& b = dt[(size_t)j * n + prev];
+        a = at_least(a, MIN_DIST);
+        b = at_least(b, MIN_DIST);
+        double& u = var[(size_t)p * n + alive[j]];
+        double& w = var[(size_t)alive[j] * n + p];
+        u = at_least(u, MIN_VAR);
+        w = at_least(w, MIN_VAR);
+      }
+      dt[(size_t)prev * n + prev] = 0.0;
+      var[(size_t)p * n + p] = 0.0;
+    }
+    // eigen_colwise_sum: an odd column of an odd dim starts unaligned.
+    if (dim % 2 == 0) {
+      redux_columns(dt.data(), n, dim, dim, 0, sums.data(), 1);
+    } else {
+      redux_columns(dt.data(), 2 * (size_t)n, (dim + 1) / 2, dim, 0,
+                    sums.data(), 2);
+      redux_columns(dt.data() + n, 2 * (size_t)n, dim / 2, dim, 1,
+                    sums.data() + 1, 2);
+    }
+
+    int32_t i1, i2;
+    if (step < n_plan) {
+      i1 = plan[2 * step];
+      i2 = plan[2 * step + 1];
+      if (i1 < 0 || i2 <= i1 || i2 >= dim) return -1;
+    } else {
+      // Q = 0.5 D - 0.5 / (dim - 2) (s_c + s_r), diagonal +inf; the first
+      // minimum in column-major order, a NaN winning as np.argmin's does.
+      const double coef = 0.5 / (dim - 2.0);
+      double best = INFINITY;
+      int32_t br = 0, bc = 0;
+      for (int32_t c = 0; c < dim; ++c) {
+        const double* qc = q.data();
+        double m;
+        const bool nan = q_column(dt.data() + (size_t)c * n, sums.data(),
+                                  sums[c], coef, dim, c, q.data(), &m);
+        if (nan) {
+          int32_t r = 0;
+          while (qc[r] == qc[r]) ++r;
+          br = r;
+          bc = c;
+          break;
+        }
+        if (m < best) {
+          int32_t r = 0;
+          while (!(qc[r] == m)) ++r;
+          best = m;
+          br = r;
+          bc = c;
+        }
+      }
+      i1 = std::min(br, bc);
+      i2 = std::max(br, bc);
+    }
+
+    // Python's max(a, b) is b if b > a else a, min(a, b) b if b < a else a.
+    const double d12 = dt[(size_t)i2 * n + i1], d21 = dt[(size_t)i1 * n + i2];
+    double dist1 = (d12 + (sums[i1] - sums[i2]) / (dim - 2.0)) / 2.0;
+    dist1 = MIN_DIST > dist1 ? MIN_DIST : dist1;
+    dist1 = d12 < dist1 ? d12 : dist1;
+    double dist2 = d21 - dist1;
+    dist2 = MIN_DIST > dist2 ? MIN_DIST : dist2;
+
+    const int32_t p1 = alive[i1], p2 = alive[i2];
+    const double* v1 = var.data() + (size_t)p1 * n;
+    const double* v2 = var.data() + (size_t)p2 * n;
+    double acc = v2[alive[0]] - v1[alive[0]];
+    for (int32_t j = 1; j < dim; ++j)
+      acc = acc + (v2[alive[j]] - v1[alive[j]]);
+    const double v12 = v1[p2];
+    double lam = 0.5 + acc / (2.0 * (dim - 2) * v12);
+    if (lam != lam) {
+      lam = 0.5;
+    } else {
+      lam = lam > 0.0 ? lam : 0.0;
+      lam = 1.0 < lam ? 1.0 : lam;
+    }
+    const double mu = 1.0 - lam, w = lam * mu * v12;
+    for (int32_t j = 0; j < dim; ++j) {
+      nd[j] = lam * (dt[(size_t)j * n + i1] - dist1)
+              + mu * (dt[(size_t)j * n + i2] - dist2);
+      nv[j] = lam * v1[alive[j]] + mu * v2[alive[j]] - w;
+    }
+    nd[i1] = 0.0;
+    nv[i1] = 0.0;
+
+    // Row and column i2 go; the new node's row and column take i1.
+    const int32_t tail = dim - 1 - i2;
+    for (int32_t c = 0; c < i2; ++c) {
+      double* row = dt.data() + (size_t)c * n;
+      std::memmove(row + i2, row + i2 + 1, sizeof(double) * tail);
+    }
+    for (int32_t c = i2; c < dim - 1; ++c) {
+      double* dst = dt.data() + (size_t)c * n;
+      const double* src = dst + n;
+      std::memcpy(dst, src, sizeof(double) * i2);
+      std::memcpy(dst + i2, src + i2 + 1, sizeof(double) * tail);
+    }
+    std::memmove(nd.data() + i2, nd.data() + i2 + 1, sizeof(double) * tail);
+    std::memmove(nv.data() + i2, nv.data() + i2 + 1, sizeof(double) * tail);
+    alive.erase(alive.begin() + i2);
+    for (int32_t j = 0; j < dim - 1; ++j) {
+      dt[(size_t)j * n + i1] = nd[j];
+      dt[(size_t)i1 * n + j] = nd[j];
+      var[(size_t)p1 * n + alive[j]] = nv[j];
+      var[(size_t)alive[j] * n + p1] = nv[j];
+    }
+    join[2 * step] = i1;
+    join[2 * step + 1] = i2;
+    len[2 * step] = dist1;
+    len[2 * step + 1] = dist2;
+    prev = i1;
+  }
+  for (int32_t r = 0; r < 3; ++r)
+    for (int32_t c = 0; c < 3; ++c)
+      d_end[r * 3 + c] = dt[(size_t)c * n + r];
+  return 0;
+}
+
 }  // extern "C"

@@ -3,9 +3,10 @@
 Behavioral parity with TreeNJ.cpp:132-281 — including
 Eigen's column-major first-minimum tie-breaking in the Q-matrix argmin, the
 variance-weighted lambda, the reduction bookkeeping (deleted index2, new node
-at index1), and the 2-/3-leaf terminations.  The O(N²) per-step Q-matrix
-computation is vectorized; at N in the hundreds this is host-trivial, and the
-device path is only worth it for very large N.
+at index1), and the 2-/3-leaf terminations.  The native library's
+``gc_bionj`` runs the loop's steps, every operation in the numpy loop's
+order, and Python replays its joins; the numpy loop below is the path
+without the library.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 from ..errors import ParityError
 
 from .phytree import PhyTree
+from .. import native
 from ..eigen_compat import eigen_colwise_sum, eigen_seq_sum
 
 MIN_DIST = 1e-4
@@ -108,6 +110,22 @@ def _all_internal(tree: PhyTree):
     return out
 
 
+def _join(seqs_order: List[str], subtrees: List[PhyTree], index1: int,
+          index2: int, dist1: float, dist2: float, options) -> None:
+    """Join subtrees index1 < index2 into a new node that takes index1's
+    place (TreeNJ.cpp's reduction bookkeeping)."""
+    name1 = seqs_order[index1]
+    name2 = seqs_order[index2]
+    del seqs_order[index2]
+    seqs_order[index1] = name1 + "," + name2
+
+    tree = PhyTree(seqs_order[index1])
+    tree.add_child(subtrees[index1], dist1, support(dist1, options))
+    tree.add_child(subtrees[index2], dist2, support(dist2, options))
+    del subtrees[index2]
+    subtrees[index1] = tree
+
+
 def build_nj_tree(seqs_order: List[str], distances: np.ndarray,
                   variances: np.ndarray, options,
                   topo: Optional[PhyTree] = None) -> PhyTree:
@@ -120,6 +138,12 @@ def build_nj_tree(seqs_order: List[str], distances: np.ndarray,
     subtrees = [PhyTree(name) for name in seqs_order]
 
     dim = len(seqs_order)
+    joined = native.bionj_native(D, V, topo_plan) if dim > 3 else None
+    if joined is not None:
+        joins, lengths, D = joined
+        for (index1, index2), (dist1, dist2) in zip(joins.tolist(), lengths):
+            _join(seqs_order, subtrees, index1, index2, dist1, dist2, options)
+        dim = 3
     while dim > 3:
         D = np.maximum(D, MIN_DIST)
         V = np.maximum(V, MIN_VAR)
@@ -143,9 +167,6 @@ def build_nj_tree(seqs_order: List[str], distances: np.ndarray,
         else:
             index1, index2 = topo_plan[plan_pos]
             plan_pos += 1
-
-        name1 = seqs_order[index1]
-        name2 = seqs_order[index2]
 
         dist1 = (D[index1, index2] + (sums[index1] - sums[index2])
                  / (dim - 2.0)) / 2.0
@@ -175,14 +196,7 @@ def build_nj_tree(seqs_order: List[str], distances: np.ndarray,
         V[index1, :] = new_var
         V[:, index1] = new_var
 
-        del seqs_order[index2]
-        seqs_order[index1] = name1 + "," + name2
-
-        tree = PhyTree(seqs_order[index1])
-        tree.add_child(subtrees[index1], dist1, support(dist1, options))
-        tree.add_child(subtrees[index2], dist2, support(dist2, options))
-        del subtrees[index2]
-        subtrees[index1] = tree
+        _join(seqs_order, subtrees, index1, index2, dist1, dist2, options)
         dim -= 1
 
     tree = PhyTree("root")
