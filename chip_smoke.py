@@ -24,7 +24,13 @@ fam500 equals native, reported); ``rates`` prints the calibration and the
 rates engine_policy.py holds.  Phase ``start`` holds ``walls``' fresh
 processes of t_fam100 and fam500 ``-i 0`` against their goldens and prints
 their walls, their import of torch (``card_start``) and fam500's wait for
-its first guide tree, built in a process of its own (``tree_wait``).  Phase ``mesh`` (phase_mesh) holds the
+its first guide tree, built in a process of its own (``tree_wait``).
+Phase ``fam1000_default`` runs the CLI's default (``--fasta``, ``-i 2``)
+on fam1000 as bench_torch.py makes it, in a process of its own, against
+the JAX package's golden (prealigned_golden.py) byte for byte, with 8
+launches of D1 (two re-trees of four blocks of pairs each), and prints
+its peak host RSS and torch's peak card memory on a line of its own
+(with ``--parent``, the parent tree's beside them).  Phase ``mesh`` (phase_mesh) holds the
 scale-out on the one card: the split programs and the level and
 root-search batches over 1, 2 and 4 shards of cuda:0 against the unsplit
 work, c2_fam100 through the CLI over 4 shards (its launches are the
@@ -74,13 +80,15 @@ form's reckoning (int32 counts, PAIR_COL_OPS_OLD a pair-column).
     python3 chip_smoke.py --parent DIR
 
 also times the D1 of the tree checked out at DIR (pair_stats_time.py, in a
-process of its own) before and after this tree's, on the same alignments.
+process of its own) before and after this tree's, on the same alignments,
+and runs phase fam1000_default on that tree before and after this one's.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import gzip
 import io
 import json
 import os
@@ -95,6 +103,7 @@ import time
 import numpy as np
 import torch
 
+import bench_torch
 from prographmsa_tpu_torch import _build, checks, engine_policy, native, timings
 from prographmsa_tpu_torch import cli as port_cli
 from prographmsa_tpu_torch.align import graph_dp_cuda as gdp
@@ -116,7 +125,8 @@ from prographmsa_tpu_torch.distances.align import (GAP_PARAMS, _load_scoring,
                                                    _seq_codes)
 from prographmsa_tpu_torch.distances.angle import kmer_counts
 from prographmsa_tpu_torch.distances.nw_cuda import nw_counts, nw_torch, plan_nw
-from prographmsa_tpu_torch.distances.prealigned import _pair_stats_batch_host
+from prographmsa_tpu_torch.distances.prealigned import (
+    CARD_BLOCK_PAIRS, _pair_stats_batch_host, host_block_pairs)
 from prographmsa_tpu_torch.distances.prealigned_cuda import (
     count_dtype, pair_pack, pair_pack_torch, pair_stats, pair_stats_torch,
     words)
@@ -904,6 +914,96 @@ def phase_start(runs):
 
 class Interrupted(Exception):
     """Raised inside a run to stop it where an interruption would."""
+
+
+# A CLI run in a process of its own, for phase fam1000_default: its
+# launches, the peak RSS of this process and of its children (the first
+# guide tree's process) and torch's peak card memory, into the JSON file
+# argv[1]; the CLI's arguments follow.  torch is imported after the run, as
+# the CLI imports it, so the first tree is built apart as in a user's run.
+MEMORY_RUN = """
+import json, resource, sys
+from prographmsa_tpu_torch import _build
+from prographmsa_tpu_torch.cli import main
+rc = main(sys.argv[2:])
+import torch
+rss = lambda who: resource.getrusage(who).ru_maxrss * 1024
+with open(sys.argv[1], "w") as f:
+    json.dump({"launches": dict(_build.LAUNCHES),
+               "host_rss_bytes": rss(resource.RUSAGE_SELF),
+               "tree_rss_bytes": rss(resource.RUSAGE_CHILDREN),
+               "card_allocated_bytes": torch.cuda.max_memory_allocated(),
+               "card_reserved_bytes": torch.cuda.max_memory_reserved()}, f)
+sys.exit(rc)
+"""
+FAM1000 = (1000, 300, 0)   # make_family(n, length, AA, seed), bench's fam1000
+FAM1000_GOLDEN = GOLD + "/fam1000_seed0.fasta.gz"   # prealigned_golden.py
+FAM1000_RETREES = 2        # the CLI's default -i 2
+
+
+def memory_run(tree, fasta, out):
+    """The default CLI run of ``fasta`` by the port at ``tree`` (this
+    checkout or a parent's), through MEMORY_RUN: (wall s, its record,
+    stderr)."""
+    rec = out + ".json"
+    t1 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-c", MEMORY_RUN, rec, "--fasta",
+                        fasta, "--timings", "-o", out], cwd=tree,
+                       capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t1
+    if p.returncode != 0:
+        raise AssertionError("fam1000_default at %s exited %d: %s"
+                             % (tree, p.returncode, p.stderr[-3000:]))
+    with open(rec) as f:
+        return wall, json.load(f), p.stderr
+
+
+def phase_fam1000_default(tmp, parent=None):
+    """The CLI's default run (``--fasta``: ``-i 2``, two re-trees from
+    prealigned distances, D1 on the card) on fam1000 as bench_torch.py
+    makes it, in a process of its own, against the JAX package's golden
+    (prealigned_golden.py) byte for byte: each re-tree's 499,500 pairs are
+    four calls of D1 (prealigned.CARD_BLOCK_PAIRS), so 8 launches of
+    ``pair_pack`` and of ``pair_stats``.  Prints the wall, the
+    ``distances`` phase, and on a line of its own the peak host RSS and
+    torch's peak card memory.  With ``parent``, the tree at that path
+    runs the same before and after this one (held to the golden too)."""
+    t0 = time.perf_counter()
+    n, length, seed = FAM1000
+    fasta = os.path.join(tmp, "fam1000_seed%d.fasta" % seed)
+    mf = bench_torch.make_fixtures()
+    mf.write_fasta(fasta, mf.make_family(n, length, bench_torch.AA, seed))
+    with gzip.open(FAM1000_GOLDEN, "rb") as f:
+        gold = f.read()
+    trees = [("parent_before", parent)] if parent else []
+    trees += [("port", REPO)] + ([("parent_after", parent)] if parent else [])
+    runs = {}
+    for name, tree in trees:
+        out = os.path.join(tmp, "fam1000_default_%s.fasta" % name)
+        wall, rec, err = memory_run(tree, fasta, out)
+        note("== fam1000_default %s --timings" % name, err)
+        with open(out, "rb") as f:
+            if f.read() != gold:
+                raise AssertionError("fam1000_default (%s) differs from %s"
+                                     % (name, FAM1000_GOLDEN))
+        runs[name] = dict(rec, wall_s=wall, err=err)
+    port = runs["port"]
+    calls = FAM1000_RETREES * -(-(n * (n - 1) // 2) // CARD_BLOCK_PAIRS)
+    got = {k: port["launches"].get(k) for k in DIST_KERNELS}
+    if got != {"nw": 0, "pair_pack": calls, "pair_stats": calls} or not all(
+            port["launches"][k] > 0 for k in DP_KERNELS):
+        raise AssertionError("fam1000_default: launches %s, %d calls of D1 "
+                             "expected" % (port["launches"], calls))
+    gb = lambda b: "%.3f" % (b / 1e9)
+    say("fam1000_default", t0, golden="identical", wall_s="%.3f"
+        % port["wall_s"], distances_s=timing_of(port["err"], "distances"),
+        launches=json.dumps(port["launches"], separators=(",", ":")))
+    print("fam1000_default memory: " + " ".join(
+        "%s_host_rss_gb=%s %s_tree_rss_gb=%s %s_card_allocated_gb=%s "
+        "%s_card_reserved_gb=%s %s_wall_s=%.3f" % (
+            k, gb(r["host_rss_bytes"]), k, gb(r["tree_rss_bytes"]), k,
+            gb(r["card_allocated_bytes"]), k, gb(r["card_reserved_bytes"]),
+            k, r["wall_s"]) for k, r in runs.items()), flush=True)
 
 
 def interrupted_run(argv, at_pass):
@@ -2032,8 +2132,9 @@ def pair_stats_inputs():
 def pair_stats_check(name, vals, gapm, pi, pj, cb, dev):
     """D1 (pack and statistics, the counts under both widths where the
     alignment allows 16 bits) against pair_pack_torch, pair_stats_torch
-    and the host batch, bit for bit.  Returns the device tensors, the
-    packed rows, the plain result and the host's seconds."""
+    and the host batch (over the prealigned stage's blocks), bit for bit.
+    Returns the device tensors, the packed rows, the plain result and the
+    host's seconds."""
     N, L = vals.shape
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
             for a in (vals, gapm, pi, pj)]
@@ -2043,11 +2144,13 @@ def pair_stats_check(name, vals, gapm, pi, pj, cb, dev):
         diff("pair_pack", x, y, "%s %s" % (name, k))
     ct, gt = pair_stats_torch(*args, cb)
     t1 = time.perf_counter()
-    ch, gh = _pair_stats_batch_host(vals.astype(np.int64), gapm.astype(bool),
-                                    pi.astype(np.intp), pj.astype(np.intp),
-                                    cb, cb)
+    step = host_block_pairs(L)      # the blocks the prealigned stage takes
+    host = [_pair_stats_batch_host(vals.astype(np.int64), gapm.astype(bool),
+                                   pi[s:s + step].astype(np.intp),
+                                   pj[s:s + step].astype(np.intp), cb, cb)
+            for s in range(0, len(pi), step)]
     host_s = time.perf_counter() - t1
-    ch, gh = torch.from_numpy(ch), torch.from_numpy(gh)
+    ch, gh = (torch.from_numpy(np.concatenate(a)) for a in zip(*host))
     types = (torch.int32,) + ((torch.uint16,) if L < 1 << 16 else ())
     for ty in types:
         c, g = pair_stats(*args, cb, count_type=ty)
@@ -2265,8 +2368,9 @@ def dist_row(k, launches, res, main_shape):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", help="a checkout of an earlier tree whose "
-                    "D1 phase pair_stats times beside this one's")
+    ap.add_argument("--parent", help="a checkout of an earlier tree: phase "
+                    "pair_stats times its D1 and phase fam1000_default runs "
+                    "it, beside this tree's")
     parent = ap.parse_args().parent
     if parent and not os.path.exists(os.path.join(parent, "prographmsa_tpu_"
                                                   "torch")):
@@ -2284,6 +2388,7 @@ def main():
         launches_reroot = phase_reroot(tmp, runs)
         phase_walls(tmp, runs)
         phase_start(runs)
+        phase_fam1000_default(tmp, parent)
         launches_resume = phase_resume(tmp, runs, smi)
         launches500, root, sum500, sum500_dev, levels500 = phase_levels(
             dev, tmp)

@@ -5,12 +5,17 @@ substitution counts read off MSA columns (dual-gap columns skipped, gap
 openings counted with a small state machine), then
 DistanceFactoryML::computeDistance.
 
-The O(N²·L) column scan is vectorized: per pair, counts come from one
-bincount over paired residue codes and gap openings from run-length logic on
-the gap masks.  When the engine policy sends the stage to the card, kernel
-D1 (distances/prealigned_cuda.py) computes the same integers for every
-pair from the alignment uploaded once; a failure there raises, with no
-retry on the host.
+The O(N²·L) column scan streams over blocks of pairs, each taken to its
+distances before the next starts, so the stage holds one block's arrays
+and never every pair's (at 1,000 rows, 499,500 pairs x 3,516 columns).  On
+the host a block is one vectorized batch of at most
+HOST_BLOCK_PAIR_COLUMNS pair-columns: a bincount over the block's paired
+residue codes, gap openings by a forward fill of the gap states.  When the
+engine policy sends the stage to the card, kernel D1
+(distances/prealigned_cuda.py) computes the same integers for a block of
+at most CARD_BLOCK_PAIRS pairs a call; a failure there raises, with no
+retry on the host.  Counts and gap openings are exact and each pair's
+distance is computed lane by lane, so no result depends on the block size.
 """
 
 from __future__ import annotations
@@ -20,6 +25,13 @@ from typing import Dict, List
 import numpy as np
 
 from .ml import compute_distances_batch
+
+# Pair-columns a block of the host batch: its [pairs, L] temporaries take
+# about 50 bytes a pair-column, under a gigabyte a block.
+HOST_BLOCK_PAIR_COLUMNS = 1 << 24
+# Pairs a call of D1: a re-tree of up to 512 rows (fam500's 124,750 pairs)
+# is one call, 1,000 rows' 499,500 pairs are four.
+CARD_BLOCK_PAIRS = 1 << 17
 
 
 def _pair_stats(vals1, gap1, vals2, gap2, dim, count_bound):
@@ -53,7 +65,8 @@ def _pair_stats(vals1, gap1, vals2, gap2, dim, count_bound):
 
 
 def _pair_stats_batch_host(vmat, gmat, pi, pj, dim, count_bound):
-    """_pair_stats over ALL pairs at once (same counts/gap semantics).
+    """_pair_stats over the pairs (pi, pj) at once (same counts/gap
+    semantics).
 
     Counts: one flat bincount of per-pair-offset column codes.  Gap
     openings: the reference's per-column state machine (Prealigned.h:61-80)
@@ -111,9 +124,19 @@ def _pair_stats_on_card(vmat, gmat, pi, pj, dim, count_bound, device):
     return out, gaps.cpu().numpy().astype(np.int64)
 
 
+def host_block_pairs(L: int) -> int:
+    """Pairs a block of the host batch over alignments of L columns."""
+    return max(1, HOST_BLOCK_PAIR_COLUMNS // max(L, 1))
+
+
 def compute_prealigned_distances(spec, seqs: Dict[str, np.ndarray],
                                  order: List[str], factory, options,
-                                 device=None, engine: str = "native"):
+                                 device=None, engine: str = "native",
+                                 block_pairs: int = 0):
+    """Distances and variances [n, n] of the aligned rows ``order``: each
+    block of pairs (``block_pairs``, else CARD_BLOCK_PAIRS on the card and
+    ``host_block_pairs(L)`` on the host) goes from its counts and gap
+    openings to its distances before the next block starts."""
     n = len(order)
     distances = np.zeros((n, n))
     variances = np.zeros((n, n))
@@ -122,50 +145,48 @@ def compute_prealigned_distances(spec, seqs: Dict[str, np.ndarray],
     # bound (reference DNA mode is broken, see distances/ml.py docstring).
     count_bound = min(20, spec.DIM) if spec.name != "codon" else 20
 
-    vals = {name: spec.values(seqs[name]) for name in order}
-    gapm = {name: spec.is_gap(seqs[name]) for name in order}
+    vals = [spec.values(seqs[name]) for name in order]
+    gapm = [spec.is_gap(seqs[name]) for name in order]
+    lens = np.array([len(v) for v in vals], dtype=np.int64)
+    pi, pj = np.triu_indices(n, 1)          # (i, j), i < j, row by row
+    seqlens = (lens[pi] + lens[pj]) / 2.0
+    P = len(pi)
+    if not P:
+        return distances, variances
 
-    pairs = [(i, j) for i in range(n) for j in range(i + 1, n)]
-    seqlens = np.zeros(len(pairs))
-    for k, (i, j) in enumerate(pairs):
-        seqlens[k] = (len(vals[order[i]]) + len(vals[order[j]])) / 2.0
+    def finish(sl, counts_b, gaps_b):
+        db, vb = compute_distances_batch(counts_b, gaps_b, seqlens[sl],
+                                         factory, options, spec.name)
+        distances[pi[sl], pj[sl]] = distances[pj[sl], pi[sl]] = db
+        variances[pi[sl], pj[sl]] = variances[pj[sl], pi[sl]] = vb
 
-    counts_b = gaps_b = None
     from ..engine_policy import use_device_prealigned
-    Lmsa = max((len(vals[name]) for name in order), default=0)
-    if pairs and use_device_prealigned(engine, n_pairs=len(pairs), L=Lmsa,
-                                       count_bound=count_bound):
+    L = int(lens.max())
+    if use_device_prealigned(engine, n_pairs=P, L=L,
+                             count_bound=count_bound):
         if device is None:
             raise ValueError("engine %r runs the prealigned statistics on "
                              "the card: pass its device" % engine)
-        vmat = np.stack([vals[name] for name in order])
-        gmat = np.stack([gapm[name] for name in order])
-        pi = np.fromiter((i for i, _ in pairs), np.int32, len(pairs))
-        pj = np.fromiter((j for _, j in pairs), np.int32, len(pairs))
-        counts_b, gaps_b = _pair_stats_on_card(vmat, gmat, pi, pj, spec.DIM,
-                                               count_bound, device)
-    if counts_b is None and len(pairs) > 8:
-        # vectorized host path: ONE bincount over all pairs' column codes
-        # plus a forward-filled gap-state scan — replaces the O(N²) Python
-        # pair loop (measured ~10x on the fam100 iteration-2/3 stages)
-        vmat = np.stack([vals[name] for name in order])
-        gmat = np.stack([gapm[name] for name in order])
-        pi = np.fromiter((i for i, _ in pairs), np.intp, len(pairs))
-        pj = np.fromiter((j for _, j in pairs), np.intp, len(pairs))
-        counts_b, gaps_b = _pair_stats_batch_host(vmat, gmat, pi, pj,
-                                                  spec.DIM, count_bound)
-    if counts_b is None:
-        counts_b = np.zeros((len(pairs), spec.DIM, spec.DIM), dtype=np.int64)
-        gaps_b = np.zeros(len(pairs), dtype=np.int64)
-        for k, (i, j) in enumerate(pairs):
-            counts, gaps = _pair_stats(vals[order[i]], gapm[order[i]],
-                                       vals[order[j]], gapm[order[j]],
-                                       spec.DIM, count_bound)
-            counts_b[k] = counts
-            gaps_b[k] = gaps
-    db, vb = compute_distances_batch(counts_b, gaps_b, seqlens, factory,
-                                     options, spec.name)
-    for k, (i, j) in enumerate(pairs):
-        distances[i, j] = distances[j, i] = db[k]
-        variances[i, j] = variances[j, i] = vb[k]
+        vmat, gmat = np.stack(vals), np.stack(gapm)
+        pi32, pj32 = pi.astype(np.int32), pj.astype(np.int32)
+        step = block_pairs or CARD_BLOCK_PAIRS
+        for s in range(0, P, step):
+            sl = slice(s, s + step)
+            finish(sl, *_pair_stats_on_card(vmat, gmat, pi32[sl], pj32[sl],
+                                            spec.DIM, count_bound, device))
+    elif P > 8:
+        vmat, gmat = np.stack(vals), np.stack(gapm)
+        step = block_pairs or host_block_pairs(L)
+        for s in range(0, P, step):
+            sl = slice(s, s + step)
+            finish(sl, *_pair_stats_batch_host(vmat, gmat, pi[sl], pj[sl],
+                                               spec.DIM, count_bound))
+    else:
+        counts_b = np.zeros((P, spec.DIM, spec.DIM), dtype=np.int64)
+        gaps_b = np.zeros(P, dtype=np.int64)
+        for k, (i, j) in enumerate(zip(pi, pj)):
+            counts_b[k], gaps_b[k] = _pair_stats(vals[i], gapm[i], vals[j],
+                                                 gapm[j], spec.DIM,
+                                                 count_bound)
+        finish(slice(None), counts_b, gaps_b)
     return distances, variances

@@ -60,7 +60,9 @@ NW_NATIVE_RATE = 2.288e8
 # D1 (csrc/pair_stats.cu, pack and statistics), pair-columns per second of
 # device time on the fam500 -i 0 alignment's 124,750 pairs.
 PAIR_STATS_DEVICE_RATE = 2.162e12
-# prealigned._pair_stats_batch_host, pair-columns per second on the same.
+# prealigned._pair_stats_batch_host, pair-columns per second on the same,
+# all pairs in one call; chip_smoke.py's phase rates times it over the
+# stage's blocks.
 PAIR_STATS_HOST_RATE = 1.053e7
 # The native graph-pair alignment (S, fill, backtrack) of one thread, cells
 # per second on fam100's largest level.
@@ -136,20 +138,24 @@ def use_device_nw(engine: str, n_pairs: int = 0, L: int = 0,
 def use_device_prealigned(engine: str, n_pairs: int = 0, L: int = 0,
                           count_bound: int = 20) -> bool:
     """Prealigned pair statistics on the card (D1)?  Under ``auto``: card
-    cost = two round trips (upload, fetch) + the counts' fetch (16 bits a
-    count below 2^16 columns, else 32) + the pair-columns over D1's rate;
-    host cost = the pair-columns over the host batch's rate."""
+    cost = two round trips (upload, fetch) a call of D1 (a block of
+    ``prealigned.CARD_BLOCK_PAIRS`` pairs) + the fetch of every count (16
+    bits a count below 2^16 columns, else 32) + the pair-columns over D1's
+    rate; host cost = the pair-columns over the host batch's rate (its
+    blocks change the work of no pair-column)."""
     if check_engine(engine) in ("torch", "device"):
         return True
     if engine == "native":
         return False
     if not n_pairs:
         return True
+    from .distances.prealigned import CARD_BLOCK_PAIRS
     c = calibration()
     width = 2.0 if L < 1 << 16 else 4.0      # prealigned_cuda.count_dtype
     fetch_mb = n_pairs * (count_bound * count_bound * width + 4.0) / 1e6
     work = float(n_pairs) * L
-    dev = (2.0 * c["roundtrip_s"] + fetch_mb / c["fetch_mbps"]
+    calls = -(-n_pairs // CARD_BLOCK_PAIRS)
+    dev = (2.0 * calls * c["roundtrip_s"] + fetch_mb / c["fetch_mbps"]
            + work / PAIR_STATS_DEVICE_RATE)
     return dev < work / PAIR_STATS_HOST_RATE
 
