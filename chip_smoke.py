@@ -28,9 +28,11 @@ its first guide tree, built in a process of its own (``tree_wait``).
 Phase ``fam1000_default`` runs the CLI's default (``--fasta``, ``-i 2``)
 on fam1000 as bench_torch.py makes it, in a process of its own, against
 the JAX package's golden (prealigned_golden.py) byte for byte, with 8
-launches of D1 (two re-trees of four blocks of pairs each), and prints
-its peak host RSS and torch's peak card memory on a line of its own
-(with ``--parent``, the parent tree's beside them).  Phase ``mesh`` (phase_mesh) holds the
+launches of D1 (two re-trees of four blocks of pairs each), and the same
+under ``--engine native --device cpu`` (the host tier's native pair
+statistics) against the same golden; it prints the peak host RSS and
+torch's peak card memory on a line of its own (with ``--parent``, the
+parent tree's card run beside them).  Phase ``mesh`` (phase_mesh) holds the
 scale-out on the one card: the split programs and the level and
 root-search batches over 1, 2 and 4 shards of cuda:0 against the unsplit
 work, c2_fam100 through the CLI over 4 shards (its launches are the
@@ -126,7 +128,8 @@ from prographmsa_tpu_torch.distances.align import (GAP_PARAMS, _load_scoring,
 from prographmsa_tpu_torch.distances.angle import kmer_counts
 from prographmsa_tpu_torch.distances.nw_cuda import nw_counts, nw_torch, plan_nw
 from prographmsa_tpu_torch.distances.prealigned import (
-    CARD_BLOCK_PAIRS, _pair_stats_batch_host, host_block_pairs)
+    CARD_BLOCK_PAIRS, _pair_stats_batch_host, _pair_stats_batch_numpy,
+    host_block_pairs)
 from prographmsa_tpu_torch.distances.prealigned_cuda import (
     count_dtype, pair_pack, pair_pack_torch, pair_stats, pair_stats_torch,
     words)
@@ -917,45 +920,73 @@ class Interrupted(Exception):
 
 
 # A CLI run in a process of its own, for phase fam1000_default: its
-# launches, the peak RSS of this process and of its children (the first
-# guide tree's process) and torch's peak card memory, into the JSON file
-# argv[1]; the CLI's arguments follow.  torch is imported after the run, as
-# the CLI imports it, so the first tree is built apart as in a user's run.
+# launches, the peak RSS of its children (the first guide tree's process)
+# and torch's peak card memory, into the JSON file argv[1]; the CLI's
+# arguments follow.  torch is imported after the run, as the CLI imports
+# it, so the first tree is built apart as in a user's run; a run that
+# imported no torch (--engine native) reports no card memory.
 MEMORY_RUN = """
 import json, resource, sys
 from prographmsa_tpu_torch import _build
 from prographmsa_tpu_torch.cli import main
 rc = main(sys.argv[2:])
-import torch
-rss = lambda who: resource.getrusage(who).ru_maxrss * 1024
+rec = {"launches": dict(_build.LAUNCHES),
+       "tree_rss_bytes": resource.getrusage(
+           resource.RUSAGE_CHILDREN).ru_maxrss * 1024,
+       "card_allocated_bytes": None, "card_reserved_bytes": None}
+if "torch" in sys.modules:
+    import torch
+    rec["card_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    rec["card_reserved_bytes"] = torch.cuda.max_memory_reserved()
 with open(sys.argv[1], "w") as f:
-    json.dump({"launches": dict(_build.LAUNCHES),
-               "host_rss_bytes": rss(resource.RUSAGE_SELF),
-               "tree_rss_bytes": rss(resource.RUSAGE_CHILDREN),
-               "card_allocated_bytes": torch.cuda.max_memory_allocated(),
-               "card_reserved_bytes": torch.cuda.max_memory_reserved()}, f)
+    json.dump(rec, f)
 sys.exit(rc)
 """
 FAM1000 = (1000, 300, 0)   # make_family(n, length, AA, seed), bench's fam1000
 FAM1000_GOLDEN = GOLD + "/fam1000_seed0.fasta.gz"   # prealigned_golden.py
 FAM1000_RETREES = 2        # the CLI's default -i 2
+RSS_PERIOD_S = 0.02
 
 
-def memory_run(tree, fasta, out):
-    """The default CLI run of ``fasta`` by the port at ``tree`` (this
-    checkout or a parent's), through MEMORY_RUN: (wall s, its record,
-    stderr)."""
+def peak_rss(proc, deadline):
+    """The largest resident set of the process ``proc`` (a Popen) read from
+    /proc/PID/statm every RSS_PERIOD_S until it exits (None where that file
+    cannot be read).  Its own getrusage would not do: ru_maxrss keeps,
+    across exec, the peak of the process that spawned it (this script's,
+    gigabytes once torch is in).  Kills it at ``deadline``."""
+    page, peak = os.sysconf("SC_PAGE_SIZE"), None
+    while proc.poll() is None:
+        if time.perf_counter() > deadline:
+            proc.kill()
+            raise AssertionError("fam1000_default: a run outlasted its "
+                                 "time limit")
+        with contextlib.suppress(OSError, ValueError, IndexError):
+            with open("/proc/%d/statm" % proc.pid) as f:
+                peak = max(peak or 0, int(f.read().split()[1]) * page)
+        time.sleep(RSS_PERIOD_S)
+    return peak
+
+
+def memory_run(tree, fasta, out, extra=()):
+    """The default CLI run of ``fasta`` (with the flags ``extra``) by the
+    port at ``tree`` (this checkout or a parent's), through MEMORY_RUN:
+    (wall s, its record with the peak RSS sampled, stderr)."""
     rec = out + ".json"
     t1 = time.perf_counter()
-    p = subprocess.run([sys.executable, "-c", MEMORY_RUN, rec, "--fasta",
-                        fasta, "--timings", "-o", out], cwd=tree,
-                       capture_output=True, text=True, timeout=900)
-    wall = time.perf_counter() - t1
+    with open(out + ".stderr", "w+") as err:
+        p = subprocess.Popen([sys.executable, "-c", MEMORY_RUN, rec,
+                              "--fasta", fasta, *extra, "--timings", "-o",
+                              out], cwd=tree, stdout=subprocess.DEVNULL,
+                             stderr=err)
+        rss = peak_rss(p, t1 + 900)
+        wall = time.perf_counter() - t1
+        err.seek(0)
+        text = err.read()
     if p.returncode != 0:
         raise AssertionError("fam1000_default at %s exited %d: %s"
-                             % (tree, p.returncode, p.stderr[-3000:]))
+                             % (tree, p.returncode, text[-3000:]))
     with open(rec) as f:
-        return wall, json.load(f), p.stderr
+        return wall, dict(json.load(f), host_rss_bytes=rss), text
 
 
 def phase_fam1000_default(tmp, parent=None):
@@ -964,10 +995,13 @@ def phase_fam1000_default(tmp, parent=None):
     makes it, in a process of its own, against the JAX package's golden
     (prealigned_golden.py) byte for byte: each re-tree's 499,500 pairs are
     four calls of D1 (prealigned.CARD_BLOCK_PAIRS), so 8 launches of
-    ``pair_pack`` and of ``pair_stats``.  Prints the wall, the
-    ``distances`` phase, and on a line of its own the peak host RSS and
-    torch's peak card memory.  With ``parent``, the tree at that path
-    runs the same before and after this one (held to the golden too)."""
+    ``pair_pack`` and of ``pair_stats``.  The same family under
+    ``--engine native --device cpu`` too (the host tier: the native pair
+    statistics, no launch), held to the same golden.  Prints the walls,
+    the ``distances`` phases, and on a line of its own the peak host RSS
+    and torch's peak card memory.  With ``parent``, the tree at that path
+    runs the card tier before and after this one (held to the golden
+    too)."""
     t0 = time.perf_counter()
     n, length, seed = FAM1000
     fasta = os.path.join(tmp, "fam1000_seed%d.fasta" % seed)
@@ -975,12 +1009,14 @@ def phase_fam1000_default(tmp, parent=None):
     mf.write_fasta(fasta, mf.make_family(n, length, bench_torch.AA, seed))
     with gzip.open(FAM1000_GOLDEN, "rb") as f:
         gold = f.read()
-    trees = [("parent_before", parent)] if parent else []
-    trees += [("port", REPO)] + ([("parent_after", parent)] if parent else [])
+    native_tier = ("--engine", "native", "--device", "cpu")
+    trees = [("parent_before", parent, ())] if parent else []
+    trees += [("port", REPO, ()), ("native", REPO, native_tier)]
+    trees += [("parent_after", parent, ())] if parent else []
     runs = {}
-    for name, tree in trees:
+    for name, tree, extra in trees:
         out = os.path.join(tmp, "fam1000_default_%s.fasta" % name)
-        wall, rec, err = memory_run(tree, fasta, out)
+        wall, rec, err = memory_run(tree, fasta, out, extra)
         note("== fam1000_default %s --timings" % name, err)
         with open(out, "rb") as f:
             if f.read() != gold:
@@ -994,9 +1030,15 @@ def phase_fam1000_default(tmp, parent=None):
             port["launches"][k] > 0 for k in DP_KERNELS):
         raise AssertionError("fam1000_default: launches %s, %d calls of D1 "
                              "expected" % (port["launches"], calls))
-    gb = lambda b: "%.3f" % (b / 1e9)
+    nat = runs["native"]
+    if any(nat["launches"].values()):
+        raise AssertionError("fam1000_default: --engine native launched %s"
+                             % nat["launches"])
+    gb = lambda b: "%.3f" % (b / 1e9) if b is not None else "none"
     say("fam1000_default", t0, golden="identical", wall_s="%.3f"
         % port["wall_s"], distances_s=timing_of(port["err"], "distances"),
+        native_wall_s="%.3f" % nat["wall_s"],
+        native_distances_s=timing_of(nat["err"], "distances"),
         launches=json.dumps(port["launches"], separators=(",", ":")))
     print("fam1000_default memory: " + " ".join(
         "%s_host_rss_gb=%s %s_tree_rss_gb=%s %s_card_allocated_gb=%s "
@@ -2129,12 +2171,27 @@ def pair_stats_inputs():
     return res
 
 
+def host_batch(fn, vals, gapm, pi, pj, cb):
+    """``fn`` (a host batch of pair statistics) over the prealigned stage's
+    blocks, on the operands the stage gives it (int32 values, bool flags):
+    the counts and gap openings of every pair, and the seconds."""
+    v, g = vals.astype(np.int32), gapm.astype(bool)
+    a, b = pi.astype(np.intp), pj.astype(np.intp)
+    step = host_block_pairs(vals.shape[1])
+    t1 = time.perf_counter()
+    out = [fn(v, g, a[s:s + step], b[s:s + step], cb, cb)
+           for s in range(0, len(pi), step)]
+    secs = time.perf_counter() - t1
+    return [torch.from_numpy(np.concatenate(x)) for x in zip(*out)], secs
+
+
 def pair_stats_check(name, vals, gapm, pi, pj, cb, dev):
     """D1 (pack and statistics, the counts under both widths where the
     alignment allows 16 bits) against pair_pack_torch, pair_stats_torch
-    and the host batch (over the prealigned stage's blocks), bit for bit.
-    Returns the device tensors, the packed rows, the plain result and the
-    host's seconds."""
+    and the host batch (over the prealigned stage's blocks: the native
+    library's, and the numpy body), bit for bit.  Returns the device
+    tensors, the packed rows, the plain result and the host's seconds:
+    the native batch's least of three runs, and the numpy body's one."""
     N, L = vals.shape
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
             for a in (vals, gapm, pi, pj)]
@@ -2143,14 +2200,16 @@ def pair_stats_check(name, vals, gapm, pi, pj, cb, dev):
     for k, x, y in zip("GKC", packed, pair_pack_torch(args[0], args[1], cb)):
         diff("pair_pack", x, y, "%s %s" % (name, k))
     ct, gt = pair_stats_torch(*args, cb)
-    t1 = time.perf_counter()
-    step = host_block_pairs(L)      # the blocks the prealigned stage takes
-    host = [_pair_stats_batch_host(vals.astype(np.int64), gapm.astype(bool),
-                                   pi[s:s + step].astype(np.intp),
-                                   pj[s:s + step].astype(np.intp), cb, cb)
-            for s in range(0, len(pi), step)]
-    host_s = time.perf_counter() - t1
-    ch, gh = (torch.from_numpy(np.concatenate(a)) for a in zip(*host))
+    if native.lib() is None:
+        raise AssertionError("the native library did not build")
+    (ch, gh), host_s = host_batch(_pair_stats_batch_host, vals, gapm, pi, pj,
+                                  cb)
+    host_s = min([host_s] + [host_batch(_pair_stats_batch_host, vals, gapm,
+                                        pi, pj, cb)[1] for _ in range(2)])
+    (cn, gn), numpy_s = host_batch(_pair_stats_batch_numpy, vals, gapm, pi,
+                                   pj, cb)
+    diff("pair_stats", ch, cn, name + " host counts vs numpy")
+    diff("pair_stats", gh, gn, name + " host gaps vs numpy")
     types = (torch.int32,) + ((torch.uint16,) if L < 1 << 16 else ())
     for ty in types:
         c, g = pair_stats(*args, cb, count_type=ty)
@@ -2165,7 +2224,7 @@ def pair_stats_check(name, vals, gapm, pi, pj, cb, dev):
     if ct.dtype != count_dtype(L):
         raise AssertionError("%s: %s counts from the plain version"
                              % (name, ct.dtype))
-    return args, packed, (ct, gt), host_s
+    return args, packed, (ct, gt), (host_s, numpy_s)
 
 
 def lane_loads(K, pi, pj, W):
@@ -2203,9 +2262,11 @@ def parent_times(parent, inputs):
 
 def phase_pair_stats(dev, msas, parent=None):
     """D1 (the pack and the statistics) against pair_pack_torch,
-    pair_stats_torch and the host batch path (_pair_stats_batch_host), bit
-    for bit, on every pair of each alignment of ``msas`` and of
-    pair_stats_inputs(), its counts in 16 and in 32 bits.  On ``msas``:
+    pair_stats_torch and the host batch path (_pair_stats_batch_host, the
+    native library's, and _pair_stats_batch_numpy), bit for bit, on every
+    pair of each alignment of ``msas`` and of pair_stats_inputs(), its
+    counts in 16 and in 32 bits.  On ``msas``: the host batches' seconds
+    over the stage's blocks (native and numpy),
     the call and device times of D1, of the pack and of the statistics
     alone (in 16 and 32 bits, and with no counted column: the gap scan),
     the counted share of pair-columns, how the counted columns fall on the
@@ -2224,7 +2285,7 @@ def phase_pair_stats(dev, msas, parent=None):
     for name, (vals, gapm, pi, pj, _) in inputs.items():
         N, L = vals.shape
         P, W = len(pi), words(L)
-        args, packed, (ct, _), host_s = pair_stats_check(
+        args, packed, (ct, _), (host_s, numpy_s) = pair_stats_check(
             name, vals, gapm, pi, pj, cb, dev)
         (p0, p1), _ = time_plain(lambda: pair_stats_torch(*args, cb), 1)
         kern = lambda: pair_stats(*args, cb)
@@ -2232,6 +2293,7 @@ def phase_pair_stats(dev, msas, parent=None):
         nocount = (packed[0], torch.zeros_like(packed[1]), packed[2])
         counted = int(ct.long().sum())
         r = {"rows": N, "columns": L, "pairs": P, "host_s": host_s,
+             "host_numpy_s": numpy_s, "host_threads": native.n_threads(),
              "plain_ms": min(p0, p1),
              "ms": min(time_cuda(kern, 20) for _ in range(2)),
              "device_ms": dev_ms(kern),
@@ -2270,7 +2332,9 @@ def phase_pair_stats(dev, msas, parent=None):
     big = res[msas[-1][0]]
     work = big["pairs"] * big["columns"]
     rates = {"PAIR_STATS_DEVICE_RATE": work / (big["device_ms"] / 1e3),
-             "PAIR_STATS_HOST_RATE": work / big["host_s"]}
+             "PAIR_STATS_HOST_RATE": work / big["host_s"]
+             / big["host_threads"],
+             "PAIR_STATS_NUMPY_RATE": work / big["host_numpy_s"]}
     cj = lambda d: json.dumps({k: round(v, 5) if isinstance(v, float) else v
                                for k, v in d.items()}, separators=(",", ":"))
     say("pair_stats", t0, vs_plain="bit-identical", vs_host="bit-identical",

@@ -8,9 +8,11 @@ DistanceFactoryML::computeDistance.
 The O(N²·L) column scan streams over blocks of pairs, each taken to its
 distances before the next starts, so the stage holds one block's arrays
 and never every pair's (at 1,000 rows, 499,500 pairs x 3,516 columns).  On
-the host a block is one vectorized batch of at most
-HOST_BLOCK_PAIR_COLUMNS pair-columns: a bincount over the block's paired
-residue codes, gap openings by a forward fill of the gap states.  When the
+the host a block is one batch of at most HOST_BLOCK_PAIR_COLUMNS
+pair-columns: the native library's threaded column loop
+(native/graphcore.cpp gc_pair_stats) where the library loads, else a
+vectorized numpy batch (a bincount over the block's paired residue codes,
+gap openings by a forward fill of the gap states).  When the
 engine policy sends the stage to the card, kernel D1
 (distances/prealigned_cuda.py) computes the same integers for a block of
 at most CARD_BLOCK_PAIRS pairs a call; a failure there raises, with no
@@ -24,6 +26,7 @@ from typing import Dict, List
 
 import numpy as np
 
+from .. import native
 from .ml import compute_distances_batch
 
 # Pair-columns a block of the host batch: its [pairs, L] temporaries take
@@ -65,6 +68,17 @@ def _pair_stats(vals1, gap1, vals2, gap2, dim, count_bound):
 
 
 def _pair_stats_batch_host(vmat, gmat, pi, pj, dim, count_bound):
+    """_pair_stats over the pairs (pi, pj) at once: the native library's
+    gc_pair_stats where it loads, else _pair_stats_batch_numpy; the same
+    integers either way.  A library that loads and then fails raises."""
+    got = native.pair_stats_native(vmat, gmat, pi, pj, dim, count_bound)
+    if got is not None:
+        return got
+    return _pair_stats_batch_numpy(vmat, np.asarray(gmat, dtype=bool), pi,
+                                   pj, dim, count_bound)
+
+
+def _pair_stats_batch_numpy(vmat, gmat, pi, pj, dim, count_bound):
     """_pair_stats over the pairs (pi, pj) at once (same counts/gap
     semantics).
 
@@ -175,7 +189,8 @@ def compute_prealigned_distances(spec, seqs: Dict[str, np.ndarray],
             finish(sl, *_pair_stats_on_card(vmat, gmat, pi32[sl], pj32[sl],
                                             spec.DIM, count_bound, device))
     elif P > 8:
-        vmat, gmat = np.stack(vals), np.stack(gapm)
+        # int32 values and bool flags: what the native batch takes as is
+        vmat, gmat = np.stack(vals).astype(np.int32), np.stack(gapm)
         step = block_pairs or host_block_pairs(L)
         for s in range(0, P, step):
             sl = slice(s, s + step)

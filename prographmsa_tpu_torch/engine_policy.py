@@ -60,10 +60,13 @@ NW_NATIVE_RATE = 2.288e8
 # D1 (csrc/pair_stats.cu, pack and statistics), pair-columns per second of
 # device time on the fam500 -i 0 alignment's 124,750 pairs.
 PAIR_STATS_DEVICE_RATE = 2.162e12
-# prealigned._pair_stats_batch_host, pair-columns per second on the same,
-# all pairs in one call; chip_smoke.py's phase rates times it over the
-# stage's blocks.
-PAIR_STATS_HOST_RATE = 1.053e7
+# prealigned._pair_stats_batch_host (native gc_pair_stats), pair-columns
+# per second per host thread on the same over the stage's blocks, all
+# threads, divided by their number (chip_smoke.py, phase pair_stats).
+PAIR_STATS_HOST_RATE = 1.202e8
+# prealigned._pair_stats_batch_numpy, the host batch where the native
+# library is unavailable: pair-columns per second on the same, one thread.
+PAIR_STATS_NUMPY_RATE = 1.053e7
 # The native graph-pair alignment (S, fill, backtrack) of one thread, cells
 # per second on fam100's largest level.
 NATIVE_CELLS_PER_SEC = 7.063e7
@@ -141,8 +144,10 @@ def use_device_prealigned(engine: str, n_pairs: int = 0, L: int = 0,
     cost = two round trips (upload, fetch) a call of D1 (a block of
     ``prealigned.CARD_BLOCK_PAIRS`` pairs) + the fetch of every count (16
     bits a count below 2^16 columns, else 32) + the pair-columns over D1's
-    rate; host cost = the pair-columns over the host batch's rate (its
-    blocks change the work of no pair-column)."""
+    rate; host cost = the pair-columns over the native batch's rate times
+    the host's threads, or over the numpy batch's rate where the native
+    library is unavailable (the blocks change the work of no
+    pair-column)."""
     if check_engine(engine) in ("torch", "device"):
         return True
     if engine == "native":
@@ -157,7 +162,11 @@ def use_device_prealigned(engine: str, n_pairs: int = 0, L: int = 0,
     calls = -(-n_pairs // CARD_BLOCK_PAIRS)
     dev = (2.0 * calls * c["roundtrip_s"] + fetch_mb / c["fetch_mbps"]
            + work / PAIR_STATS_DEVICE_RATE)
-    return dev < work / PAIR_STATS_HOST_RATE
+    from . import native
+    if native.lib() is None:
+        return dev < work / PAIR_STATS_NUMPY_RATE
+    threads = c.get("host_threads", _host_threads())
+    return dev < work / (PAIR_STATS_HOST_RATE * threads)
 
 
 def use_device_angle(engine: str) -> bool:

@@ -144,6 +144,10 @@ def lib():
         L.gc_redux_sum.argtypes = [i32, i32, pf64, i32, pf64]
         L.gc_bionj.restype = i32
         L.gc_bionj.argtypes = [i32, pf64, pf64, i32, pi32, pi32, pf64, pf64]
+        i64 = ctypes.c_int64
+        L.gc_pair_stats.restype = i32
+        L.gc_pair_stats.argtypes = [i32, i32, pi32, pu8, i64, pi32, pi32, i32,
+                                    i32, pi64, pi64, i32]
         _lib = L
         return _lib
 
@@ -589,6 +593,41 @@ def angle_gram_native(counts, inv_norm):
     G = np.empty((n, n), dtype=np.float64)
     L.gc_angle_gram(n, k, _d(c), _d(inv), _d(G))
     return G
+
+
+def pair_stats_native(vmat, gmat, pi, pj, dim, count_bound):
+    """Native gc_pair_stats: the prealigned statistics of the row pairs
+    (pi, pj) of the alignment vmat / gmat [n, L] -> (counts
+    [P, max(dim, cb), max(dim, cb)] int64, gap openings [P] int64),
+    bit-identical to distances/prealigned.py's numpy batch.  Values cross
+    as int32 and gap flags as uint8 (nonzero: a gap): an int32 ``vmat``
+    and a bool or uint8 ``gmat``, C-contiguous, cross as they are (the
+    prealigned stage makes them so once); other types are converted here,
+    values outside [0, count_bound) to -1, which the counts skip as they
+    skip the value.
+    Raises IndexError for a row index outside [0, n).  None when the
+    library is unavailable."""
+    L = lib()
+    if L is None:
+        return None
+    cb = int(count_bound)
+    if vmat.dtype == np.int32 or (vmat.dtype.kind in "iu"
+                                  and vmat.dtype.itemsize < 4):
+        v = np.ascontiguousarray(vmat, dtype=np.int32)
+    else:
+        v = np.where((vmat >= 0) & (vmat < cb), vmat, -1).astype(np.int32)
+    g = gmat if gmat.dtype in (np.bool_, np.uint8) else gmat != 0
+    g = np.ascontiguousarray(g).view(np.uint8)
+    a = np.ascontiguousarray(pi, dtype=np.int32)
+    b = np.ascontiguousarray(pj, dtype=np.int32)
+    n, width = v.shape
+    P, d = len(a), max(int(dim), cb)
+    counts = np.empty((P, d, d), dtype=np.int64)
+    gaps = np.empty(P, dtype=np.int64)
+    if L.gc_pair_stats(n, width, _d(v), _d(g), P, _d(a), _d(b), cb, d,
+                       _d(counts), _d(gaps), n_threads()) < 0:
+        raise IndexError("a pair's row index lies outside [0, %d)" % n)
+    return counts, gaps
 
 
 def bionj_native(D, V, plan):

@@ -525,6 +525,74 @@ void gc_nw_batch(int32_t n_pairs, int32_t l1max, int32_t l2max,
 }
 
 // ---------------------------------------------------------------------
+// Prealigned pair statistics (distances/prealigned.py
+// _pair_stats_batch_numpy; Prealigned.h:53-80): for each pair p of rows
+// i = pi[p], j = pj[p] of the alignment vals / gaps [n_rows, L] (row-major,
+// a nonzero flag is a gap), counts[p, v1, v2] over the columns where
+// neither row is gapped and both values lie in [0, count_bound), and the
+// gap openings gap_openings[p]: a column gapped in both rows is
+// transparent; any other column's state is 0 (both residues), 2 (only row
+// j gapped) or 3 (only row i gapped), and a run opens where the state is 2
+// or 3 and differs from the previous non-transparent column's (0 before
+// the first).  counts is [P, dim, dim], zero outside [0, count_bound)^2.
+// Pairs are dealt to the threads in turn.  Returns -1, having written
+// nothing, when a row index lies outside [0, n_rows).
+int32_t gc_pair_stats(int32_t n_rows, int32_t L, const int32_t* vals,
+                      const uint8_t* gaps, int64_t P, const int32_t* pi,
+                      const int32_t* pj, int32_t count_bound, int32_t dim,
+                      int64_t* counts, int64_t* gap_openings,
+                      int32_t n_threads) {
+  for (int64_t p = 0; p < P; ++p)
+    if (pi[p] < 0 || pi[p] >= n_rows || pj[p] < 0 || pj[p] >= n_rows)
+      return -1;
+  if (n_threads < 1) n_threads = 1;
+  if (n_threads > P) n_threads = (int32_t)std::max<int64_t>(P, 1);
+  const uint32_t cb = (uint32_t)count_bound;
+  const int64_t plane = (int64_t)dim * dim;
+
+  auto work = [&](int32_t tid) {
+    std::vector<int32_t> hist((size_t)cb * cb);
+    for (int64_t p = tid; p < P; p += n_threads) {
+      std::fill(hist.begin(), hist.end(), 0);
+      const int32_t* a = vals + (int64_t)pi[p] * L;
+      const int32_t* b = vals + (int64_t)pj[p] * L;
+      const uint8_t* ga = gaps + (int64_t)pi[p] * L;
+      const uint8_t* gb = gaps + (int64_t)pj[p] * L;
+      int32_t prev = 0;
+      int64_t opens = 0;
+      for (int32_t c = 0; c < L; ++c) {
+        const bool x = ga[c] != 0, y = gb[c] != 0;
+        if (x && y) continue;
+        if (!x && !y) {
+          const uint32_t v1 = (uint32_t)a[c], v2 = (uint32_t)b[c];
+          if (v1 < cb && v2 < cb) ++hist[v1 * cb + v2];
+          prev = 0;
+        } else {
+          const int32_t s = x ? 3 : 2;
+          opens += s != prev;
+          prev = s;
+        }
+      }
+      int64_t* out = counts + p * plane;
+      std::memset(out, 0, sizeof(int64_t) * plane);
+      for (uint32_t v1 = 0; v1 < cb; ++v1)
+        for (uint32_t v2 = 0; v2 < cb; ++v2)
+          out[v1 * dim + v2] = hist[v1 * cb + v2];
+      gap_openings[p] = opens;
+    }
+  };
+
+  if (n_threads == 1) {
+    work(0);
+  } else {
+    std::vector<std::thread> ts;
+    for (int32_t t = 0; t < n_threads; ++t) ts.emplace_back(work, t);
+    for (auto& t : ts) t.join();
+  }
+  return 0;
+}
+
+// ---------------------------------------------------------------------
 // Match-score matrix precompute (align/scores.py precompute_scores;
 // GraphAlign.h:146-163).  Reproduces the Python path bit-for-bit:
 //  * num/t2 accumulate one f32 multiply-add per k step per element, in the

@@ -214,12 +214,15 @@ def test_eight_pairs_or_fewer(tier):
 def test_auto_prices_a_round_trip_pair_per_card_block(monkeypatch):
     """``auto`` pays an upload and a fetch for each call of D1: 499,500
     pairs of one column cost four calls' round trips, which lose to the
-    host where one call's would win."""
+    host where one call's would win.  The round trip is a quarter of the
+    host's time, the native batch's on eight threads."""
     from prographmsa_tpu_torch import engine_policy as EP
+    host_s = 499500 / (EP.PAIR_STATS_HOST_RATE * 8)
+    rt = host_s / 4
     monkeypatch.setattr(EP, "calibration", lambda: {
-        "roundtrip_s": 0.01, "fetch_mbps": 1e12, "device": "card"})
-    host_s = 499500 / EP.PAIR_STATS_HOST_RATE
-    assert 2 * 0.01 < host_s < 2 * 4 * 0.01
+        "roundtrip_s": rt, "fetch_mbps": 1e12, "device": "card",
+        "host_threads": 8})
+    assert 2 * rt < host_s < 2 * 4 * rt
     assert not EP.use_device_prealigned("auto", 499500, 1, 20)
     monkeypatch.setattr(pre, "CARD_BLOCK_PAIRS", 1 << 19)
     assert EP.use_device_prealigned("auto", 499500, 1, 20)
