@@ -17,11 +17,14 @@ r_fam20 and --profile_out) through the port in process with every pair on
 the card.  Phase ``reroot`` runs the root search (``-r``, ``-r -r``) and
 ``--early_refinement`` at fam100 and fam500, each in a process of its own
 that reads its launches from zero (PORT_RUN), against ``--engine native``
-byte for byte, with both walls, the DP batches' sizes and the launches of
-K1, K2, K3, X1 and D1.  Phase ``walls`` also runs ``--engine auto``
-(golden; the levels it sent to the card) and ``--engine device`` (whether
-fam500 equals native, reported); ``rates`` prints the calibration and the
-rates engine_policy.py holds.  Phase ``start`` holds ``walls``' fresh
+byte for byte, with both walls, the DP batches' sizes, the launches of
+K1, K2, K3, X1 and D1 and the device batch's phases (dp_prep, dp_device,
+dp_harvest); on fam500 ``-r -i 0``'s largest batch it holds the native
+slot tables and launch planes against the numpy bodies bit for bit, both
+timed (with ``--parent``, the parent tree's run of it beside).  Phase
+``walls`` also runs ``--engine auto`` (golden; the levels it sent to the
+card) and ``--engine device`` (whether fam500 equals native, reported);
+``rates`` prints the calibration and the rates engine_policy.py holds.  Phase ``start`` holds ``walls``' fresh
 processes of t_fam100 and fam500 ``-i 0`` against their goldens and prints
 their walls, their import of torch (``card_start``) and fam500's wait for
 its first guide tree, built in a process of its own (``tree_wait``).
@@ -1253,10 +1256,12 @@ run = {"launches": dict(_build.LAUNCHES), "batches": sizes,
        "t_main": time.time()}
 if keep and rc == 0:
     import torch
+    import dp_prep_time
     from chip_smoke import mesh_batches, shard_meshes
     dev = torch.device("cuda", 0)
     run["mesh"] = {"pairs": len(largest), "dp_device_s": mesh_batches(
         [largest], dev, shard_meshes(dev), turns=1)}
+    run["prep"] = dict(dp_prep_time.compare([largest]), pairs=len(largest))
 with open(sys.argv[1], "w") as f:
     json.dump(run, f)
 sys.exit(rc)
@@ -1277,16 +1282,21 @@ REROOT = (("r_t_fam100", ["--fasta", "-r", "-t", GOLD + "/tree0_fam100.nwk",
 REROOT_KERNELS = DP_KERNELS + ("pair_pack", "pair_stats")
 
 
-def phase_reroot(tmp, runs):
+def phase_reroot(tmp, runs, parent=None):
     """The root search and the early refinement at fam100 and fam500: the
     port on the card (a process of its own that records its DP batches and
     launches) against its own --engine native, byte for byte, stdout and
     stderr (the best score and TR lines; the --timings report apart), the
-    two walls side by side (the port's from its start to its CLI's return).
+    two walls side by side (the port's from its start to its CLI's return)
+    and the device batch's phases dp_prep, dp_device and dp_harvest.
     fam500 -r -i 0 also holds its largest batch over 1, 2 and 4 shards of
     the card against the unsplit batch (mesh_batches) after its CLI
-    returns; phase ``mesh`` reads that from ``runs``, with each run's
-    wall, stderr and output."""
+    returns, and that batch's preparation and launch planes built by the
+    native library against the numpy bodies, bit for bit, both timed
+    (dp_prep_time.compare: host arrays, no copy to the card); with
+    ``parent``, the tree at that path runs fam500 -r -i 0 on the card
+    too, held to this tree's output, its dp phases printed beside.  Phase
+    ``mesh`` reads ``runs``: each run's wall, stderr and output."""
     t0 = time.perf_counter()
     launches_of = {}
     for name, args in REROOT:
@@ -1347,13 +1357,55 @@ def phase_reroot(tmp, runs):
             pairs_device=ctr["torch_pairs_device"],
             pairs_total=ctr["torch_pairs_total"],
             launches=json.dumps(launches, separators=(",", ":")),
-            dp_device_s=timing_of(err, "dp_device"),
             dp_prep_s=timing_of(err, "dp_prep"),
+            dp_device_s=timing_of(err, "dp_device"),
+            dp_harvest_s=timing_of(err, "dp_harvest"),
             merge_s="%s/%s" % (timing_of(err, "merge"),
                                timing_of(err_nat, "merge")),
             **fb)
+        if "prep" in run:
+            prep_check(run["prep"], t0)
+        if parent and name == "r_fam500_i0":
+            parent_reroot(parent, name, args, o_port, t0)
         t0 = time.perf_counter()
     return launches_of
+
+
+def prep_check(res, t0):
+    """Phase reroot's check of the native batch preparation on fam500 -r
+    -i 0's largest batch (dp_prep_time.compare): bit for bit with the
+    numpy bodies, both bodies' seconds of prep and pack."""
+    if not res["identical"]:
+        raise AssertionError("r_fam500_i0: the native batch preparation "
+                             "differs from the numpy bodies")
+    say("r_fam500_i0_prep", t0, pairs=res["pairs"],
+        launches=res["launches"], identical="prep+pack",
+        **{"%s_%s" % (b, k): "%.4f" % res[b][k][0]
+           for b in ("native", "numpy") for k in ("prep_s", "pack_s")})
+
+
+def parent_reroot(parent, name, args, o_port, t0):
+    """``name`` run by the port at ``parent`` on the card, its output held
+    to this tree's, its dp phases printed.  The parent's kernels and
+    native library are built first, in a process of their own, so that
+    no build falls into the run's phases."""
+    subprocess.run([sys.executable, "-c", "from prographmsa_tpu_torch "
+                    "import _build, native; _build.lib(); native.lib()"],
+                   cwd=parent, check=True, capture_output=True, timeout=900)
+    out = os.path.join(os.path.dirname(o_port), name + ".parent")
+    p = subprocess.run([sys.executable, "-m", "prographmsa_tpu_torch.cli",
+                        *args, "--engine", "torch", "--device", "cuda",
+                        "--timings", "-o", out], cwd=parent,
+                       capture_output=True, text=True, timeout=900)
+    if p.returncode != 0:
+        raise AssertionError("%s at %s exited %d: %s" % (
+            name, parent, p.returncode, p.stderr[-3000:]))
+    note("== %s parent --timings" % name, p.stderr)
+    if not same_file(out, o_port):
+        raise AssertionError("%s: the parent's output differs" % name)
+    say(name + "_parent", t0, identical="output", **{
+        k + "_s": timing_of(p.stderr, k)
+        for k in ("dp_prep", "dp_device", "dp_harvest")})
 
 
 MESH_SHARDS = (1, 2, 4)       # shards of one card phase ``mesh`` holds
@@ -2433,8 +2485,8 @@ def dist_row(k, launches, res, main_shape):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="a checkout of an earlier tree: phase "
-                    "pair_stats times its D1 and phase fam1000_default runs "
-                    "it, beside this tree's")
+                    "pair_stats times its D1, phases fam1000_default and "
+                    "reroot (fam500 -r -i 0) run it, beside this tree's")
     parent = ap.parse_args().parent
     if parent and not os.path.exists(os.path.join(parent, "prographmsa_tpu_"
                                                   "torch")):
@@ -2449,7 +2501,7 @@ def main():
         launches, launches_c2, largest = phase_fam100(dev, tmp)
         phase_corpus(tmp)
         runs = {}
-        launches_reroot = phase_reroot(tmp, runs)
+        launches_reroot = phase_reroot(tmp, runs, parent)
         phase_walls(tmp, runs)
         phase_start(runs)
         phase_fam1000_default(tmp, parent)

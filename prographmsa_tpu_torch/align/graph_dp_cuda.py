@@ -16,12 +16,13 @@ The reference counts chase failures as fb_rep; here they are apart.  Its
 TPU-only rules (the VMEM fb_size rule for large rings, fb_spread of its
 8-pair groups) have no counterpart here.
 
-Pair preparation builds the slot tables with ``slots.offset_costs_rep``, so
-the slot order is the host PredIterator order.  ``pack_pairs`` turns the
+Pair preparation builds the slot tables with ``slots.capped_offset_costs``,
+so the slot order is the host PredIterator order.  ``pack_pairs`` turns the
 port's host objects (graph sites and edges, model M/pi, DynProgScores) into
-the batch tensors.  A pair's S plane and code plane are padded to the
-launch's largest pair, so pairs are sorted by size and cut into launches of
-bounded memory; each launch carries the fill's layout on the card
+the batch tensors.  Both build the large arrays in the native library
+(native/graphcore.cpp) where it loads, else in numpy, bit for bit the
+same.  A pair's S plane and code plane are padded to the launch's largest
+pair, so pairs are sorted by size and cut into launches of bounded memory; each launch carries the fill's layout on the card
 (``fill_cuda.plan_fill``: blocks per pair from the launch's pair count and
 sizes, lanes per cell from the graphs' in-degrees).
 """
@@ -33,14 +34,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import timings
+from .. import native, timings
 from .backtrack import mark_alternative_path
 from .chase_cuda import (META_FAIL_CHASE, META_FAIL_REP, META_LEN,
                          META_SCORE, N_META, chase, row_width)
 from .fill_cuda import FillPlan, card_limits, fill, plan_fill
 from .scores_cuda import exact_s
 from .slots import (COST_INF, EV_CAP, MAX_N, MAX_OFF, TIERS,
-                    offset_costs_rep, shb)
+                    capped_offset_costs, shb)
 
 MAX_R = max(r for _, r in TIERS)          # ring diagonals per pair
 LAUNCH_BYTES = 1 << 30                    # S + code planes of one launch
@@ -74,8 +75,8 @@ def prep_pair(idx, g1, g2, model, scores):
     """Slot tables for one pair, or the name of its fallback counter."""
     if g1.size > MAX_N or g2.size > MAX_N:
         return "fb_size"
-    oc1 = offset_costs_rep(g1, scores, MAX_OFF)
-    oc2 = offset_costs_rep(g2, scores, MAX_OFF)
+    oc1 = capped_offset_costs(g1, scores, MAX_OFF)
+    oc2 = capped_offset_costs(g2, scores, MAX_OFF)
     if oc1 is None or oc2 is None:
         return "fb_offsets"
     (o1, C1, rep1), (o2, C2, rep2) = oc1, oc2
@@ -84,10 +85,8 @@ def prep_pair(idx, g1, g2, model, scores):
         return "fb_reach"
     need = max(len(o1), len(o2))
     width = shb(min(op for op, _ in TIERS if op >= need))
-    inf_to_cap = lambda C: np.where(np.isfinite(C), C,
-                                    COST_INF).astype(np.float32)
-    return PairPrep(idx, g1, g2, model, scores, o1, inf_to_cap(C1), rep1,
-                    o2, inf_to_cap(C2), rep2, R, width)
+    return PairPrep(idx, g1, g2, model, scores, o1, C1, rep1, o2, C2, rep2,
+                    R, width)
 
 
 class Batch(NamedTuple):
@@ -128,9 +127,9 @@ def pack_pairs(preps, device) -> Batch:
     n1max = -(-max(p.g1.size for p in preps) // 8) * 8
     n2max = max(p.g2.size for p in preps)
     opmax = max(max(len(p.o1), len(p.o2)) for p in preps)
+    g1T, g2T, C1T, C2T, R1T, R2T, cands = _planes(preps, dim, n1max, n2max,
+                                                  opmax)
     f32 = np.float32
-    g1T = np.zeros((B, dim, n1max), f32)
-    g2T = np.zeros((B, dim, n2max), f32)
     M = np.zeros((B, dim, dim), f32)
     pi = np.zeros((B, dim), f32)
     mi = np.zeros(B, f32)
@@ -138,17 +137,11 @@ def pack_pairs(preps, device) -> Batch:
     n2 = np.zeros(B, np.int32)
     O1 = np.ones((B, opmax), np.int32)
     O2 = np.ones((B, opmax), np.int32)
-    C1T = np.full((B, opmax, n1max), COST_INF, f32)
-    C2T = np.full((B, opmax, n2max), COST_INF, f32)
-    R1T = np.zeros((B, opmax, n1max), np.uint8)
-    R2T = np.zeros((B, opmax, n2max), np.uint8)
     iv = np.zeros((B, 8), np.int32)
     par = np.zeros((B, 8), f32)
     for b, p in enumerate(preps):
         a1, a2 = p.g1.size, p.g2.size
         k1, k2 = len(p.o1), len(p.o2)
-        g1T[b, :, :a1] = p.g1.sites.T
-        g2T[b, :, :a2] = p.g2.sites.T
         M[b] = p.model.M
         pi[b] = p.model.pi
         sc = p.scores
@@ -156,10 +149,6 @@ def pack_pairs(preps, device) -> Batch:
         n1[b], n2[b] = a1, a2
         O1[b, :k1] = p.o1
         O2[b, :k2] = p.o2
-        C1T[b, :k1, :a1] = p.C1.T
-        C2T[b, :k2, :a2] = p.C2.T
-        R1T[b, :k1, :a1] = p.rep1.T
-        R2T[b, :k2, :a2] = p.rep2.T
         iv[b, :6] = (a1, a2, k1, k2, p.R, p.shb)
         par[b, :7] = (sc.gap_extend, sc.gap_init, sc.start_gap,
                       sc.start_init, sc.end_match, sc.end_gap, sc.end_skip)
@@ -169,9 +158,46 @@ def pack_pairs(preps, device) -> Batch:
     return Batch(t(g1T), t(g2T), t(M), t(pi), t(mi), t(n1), t(n2), t(O1),
                  t(O2), t(C1T), t(C2T), t(R1T), t(R2T), t(iv), t(par),
                  Rmax, n1max + n2max + 8,
-                 plan_fill(B, n1max, Rmax,
-                           max(_cands_per_cell(p) for p in preps), sms=sms,
+                 plan_fill(B, n1max, Rmax, cands, sms=sms,
                            max_blocks=max_blocks))
+
+
+def _planes(preps, dim, n1max, n2max, opmax):
+    """The launch's large planes g1T, g2T, C1T, C2T, R1T, R2T (as
+    ``Batch``) and its largest ``_cands_per_cell``: in the native library
+    where it loads (one threaded call; the finite slot costs counted as it
+    copies them), else ``_planes_numpy``."""
+    if native.lib() is None:
+        return _planes_numpy(preps, dim, n1max, n2max, opmax)
+    *planes, finite = native.pack_planes_native(
+        [(p.g1.sites, p.g2.sites, p.C1, p.C2, p.rep1, p.rep2)
+         for p in preps], dim, n1max, n2max, opmax, COST_INF)
+    cands = max(int(f1) / p.g1.size * int(f2) / p.g2.size
+                for (f1, f2), p in zip(finite, preps))
+    return (*planes, cands)
+
+
+def _planes_numpy(preps, dim, n1max, n2max, opmax):
+    """``_planes`` in numpy, the path without the native library."""
+    B = len(preps)
+    f32 = np.float32
+    g1T = np.zeros((B, dim, n1max), f32)
+    g2T = np.zeros((B, dim, n2max), f32)
+    C1T = np.full((B, opmax, n1max), COST_INF, f32)
+    C2T = np.full((B, opmax, n2max), COST_INF, f32)
+    R1T = np.zeros((B, opmax, n1max), np.uint8)
+    R2T = np.zeros((B, opmax, n2max), np.uint8)
+    for b, p in enumerate(preps):
+        a1, a2 = p.g1.size, p.g2.size
+        k1, k2 = len(p.o1), len(p.o2)
+        g1T[b, :, :a1] = p.g1.sites.T
+        g2T[b, :, :a2] = p.g2.sites.T
+        C1T[b, :k1, :a1] = p.C1.T
+        C2T[b, :k2, :a2] = p.C2.T
+        R1T[b, :k1, :a1] = p.rep1.T
+        R2T[b, :k2, :a2] = p.rep2.T
+    return (g1T, g2T, C1T, C2T, R1T, R2T,
+            max(_cands_per_cell(p) for p in preps))
 
 
 def run_batch(bt: Batch):

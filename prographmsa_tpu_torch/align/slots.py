@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import native
 from .backtrack import STATE_M, STATE_X, STATE_Y  # noqa: F401  (re-export)
 
 NEG = np.float32(-1e37)          # finite "-inf"
@@ -37,7 +38,9 @@ def shb(op: int) -> int:
 
 
 def offset_costs_rep(graph, scores, max_offsets: int):
-    """Offset-slot costs with repeat flags, in PredIterator candidate order.
+    """Offset-slot costs with repeat flags, in PredIterator candidate order:
+    the native library's tables where it loads, else the numpy body below,
+    bit for bit the same.
 
     Returns (offsets [m] i32, C [n, m] f32, rep [n, m] bool) or None if
     the graph needs more than ``max_offsets`` slots.  Slots are SPLIT BY
@@ -56,6 +59,36 @@ def offset_costs_rep(graph, scores, max_offsets: int):
     repeat_ext*(units-1), NaN (inf*0) => unreachable); rep[i, k] is True
     iff slot k is a repeat slot with a real edge into node i (the chase
     records a markAlternativePath event when it steps through one)."""
+    return _slot_tables(graph, scores, max_offsets, None)
+
+
+def capped_offset_costs(graph, scores, max_offsets: int):
+    """``offset_costs_rep`` with every non-finite cost replaced by COST_INF
+    (``inf_to_cap``): the tables a pair of the device batch carries."""
+    return _slot_tables(graph, scores, max_offsets, COST_INF)
+
+
+def inf_to_cap(C):
+    """C with every non-finite entry (+inf, -inf, NaN) set to COST_INF, the
+    finite "no edge" of the device batch."""
+    return np.where(np.isfinite(C), C, COST_INF).astype(np.float32)
+
+
+def _slot_tables(graph, scores, max_offsets, cap_value):
+    ri = np.float32(scores.repeat_init)
+    re = np.float32(scores.repeat_ext)
+    if native.lib() is not None:
+        return native.offset_costs_native(graph.padded(), ri, re,
+                                          max_offsets, cap_value)
+    out = _offset_costs_rep_numpy(graph, scores, max_offsets)
+    if out is None or cap_value is None:
+        return out
+    return out[0], inf_to_cap(out[1]), out[2]
+
+
+def _offset_costs_rep_numpy(graph, scores, max_offsets: int):
+    """``offset_costs_rep`` in numpy, the path without the native
+    library."""
     n = graph.size
     idx, cost, isrep, units = graph.padded()
     to, col = np.nonzero(idx >= 0)           # row-major: PredIterator order

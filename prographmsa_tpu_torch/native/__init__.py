@@ -148,6 +148,16 @@ def lib():
         L.gc_pair_stats.restype = i32
         L.gc_pair_stats.argtypes = [i32, i32, pi32, pu8, i64, pi32, pi32, i32,
                                     i32, pi64, pi64, i32]
+        L.gc_offset_slots.restype = i32
+        L.gc_offset_slots.argtypes = [i32, i32, pi32, pu8, i32, pi32, pi32_1]
+        L.gc_offset_costs.restype = i32
+        L.gc_offset_costs.argtypes = [i32, i32, pi32, pf32, pu8, pi32, f32,
+                                      f32, i32, i32, pi32, i32, f32, pf32,
+                                      pu8]
+        L.gc_pack_planes.restype = None
+        L.gc_pack_planes.argtypes = [i32, i32, i32, i32, i32, pi32, pi64, f32,
+                                     pf32, pf32, pf32, pf32, pu8, pu8, pi64,
+                                     i32]
         _lib = L
         return _lib
 
@@ -628,6 +638,96 @@ def pair_stats_native(vmat, gmat, pi, pj, dim, count_bound):
                        _d(counts), _d(gaps), n_threads()) < 0:
         raise IndexError("a pair's row index lies outside [0, %d)" % n)
     return counts, gaps
+
+
+def offset_costs_native(padded, ri, re, max_offsets, cap_value=None):
+    """Native gc_offset_slots + gc_offset_costs: one graph's slot tables
+    for the device DP batch from its padded arrays (``graph.padded()``)
+    and the float32 repeat scores ``ri``, ``re`` -> (offsets [m] int32,
+    C [n, m] float32, rep [n, m] bool), bit-identical to
+    align/slots.py's numpy body; with ``cap_value`` every non-finite cell
+    of C is that value (slots.inf_to_cap).  None when the graph needs more
+    than ``max_offsets`` slots.  Raises ValueError on padded arrays of
+    unequal shapes and RuntimeError when the two calls disagree on the
+    slots.  The library must be loaded."""
+    L = lib()
+    idx, cost, isrep, units = padded
+    idx = np.ascontiguousarray(idx, dtype=np.int32)
+    cost = np.ascontiguousarray(cost, dtype=np.float32)
+    isrep = np.ascontiguousarray(isrep, dtype=np.bool_)
+    units = np.ascontiguousarray(units, dtype=np.int32)
+    if idx.ndim != 2 or not idx.shape == cost.shape == isrep.shape == \
+            units.shape:
+        raise ValueError("offset_costs_native: padded arrays of shapes %s"
+                         % [a.shape for a in (idx, cost, isrep, units)])
+    n, E = idx.shape
+    offsets = np.empty(max(1, min(max_offsets, n * E)), dtype=np.int32)
+    n_rep = ctypes.c_int32()
+    p_idx, p_isrep, p_offsets = _d(idx), _d(isrep), _d(offsets)
+    count = L.gc_offset_slots(n, E, p_idx, p_isrep, max_offsets, p_offsets,
+                              ctypes.byref(n_rep))
+    if count < 0:
+        return None
+    m = max(1, count)
+    if count == 0:
+        offsets[0] = 1
+    C = np.empty((n, m), dtype=np.float32)
+    rep = np.empty((n, m), dtype=np.bool_)
+    got = L.gc_offset_costs(n, E, p_idx, _d(cost), p_isrep, _d(units), ri,
+                            re, count, n_rep.value, p_offsets,
+                            cap_value is not None,
+                            0.0 if cap_value is None else cap_value,
+                            _d(C), _d(rep))
+    if got != count:
+        raise RuntimeError("gc_offset_costs found %d slots where "
+                           "gc_offset_slots found %d" % (got, count))
+    return offsets[:m], C, rep
+
+
+def pack_planes_native(arrays, dim, n1max, n2max, opmax, cap_value):
+    """Native gc_pack_planes: the large planes of one launch of the device
+    DP batch, threaded over pairs at ``n_threads()``.  ``arrays`` holds per
+    pair (sites1 [a1, dim], sites2 [a2, dim], C1 [a1, k1], C2 [a2, k2],
+    rep1 [a1, k1], rep2 [a2, k2]), with a1 <= n1max, a2 <= n2max, k1, k2
+    <= opmax; they cross as C-contiguous float64 sites, float32 costs and
+    bool flags, converted here where they are not.  Returns (g1T
+    [B, dim, n1max] float32, g2T, C1T [B, opmax, n1max] float32, C2T, R1T
+    [B, opmax, n1max] uint8, R2T, finite [B, 2] int64: each C's entries
+    below ``cap_value``), bit-identical to graph_dp_cuda._planes_numpy.
+    Raises ValueError on shapes that do not fit.  The library must be
+    loaded."""
+    L = lib()
+    B = len(arrays)
+    sides = np.empty((B, 4), np.int32)
+    ptrs = np.empty((B, 6), np.int64)
+    types = (np.float64,) * 2 + (np.float32,) * 2 + (np.bool_,) * 2
+    # the converted arrays stay referenced here until the call returns
+    held = [[np.ascontiguousarray(x, dtype=t) for x, t in zip(a, types)]
+            for a in arrays]
+    for b, (s1, s2, c1, c2, r1, r2) in enumerate(held):
+        if not (all(x.ndim == 2 for x in held[b])
+                and s1.shape[1] == s2.shape[1] == dim
+                and c1.shape == r1.shape and len(c1) == len(s1) <= n1max
+                and c2.shape == r2.shape and len(c2) == len(s2) <= n2max
+                and max(c1.shape[1], c2.shape[1]) <= opmax):
+            raise ValueError("pack_planes_native: pair %d's shapes %s do "
+                             "not fit the launch (%d, %d, %d, %d)"
+                             % (b, [x.shape for x in held[b]], dim, n1max,
+                                n2max, opmax))
+        sides[b] = (len(s1), len(s2), c1.shape[1], c2.shape[1])
+        ptrs[b] = [x.ctypes.data for x in held[b]]
+    f32 = np.float32
+    g1T = np.empty((B, dim, n1max), f32)
+    g2T = np.empty((B, dim, n2max), f32)
+    C1T = np.empty((B, opmax, n1max), f32)
+    C2T = np.empty((B, opmax, n2max), f32)
+    R1T = np.empty((B, opmax, n1max), np.uint8)
+    R2T = np.empty((B, opmax, n2max), np.uint8)
+    finite = np.empty((B, 2), np.int64)
+    L.gc_pack_planes(B, dim, n1max, n2max, opmax, _d(sides), _d(ptrs),
+                     cap_value, _d(g1T), _d(g2T), _d(C1T), _d(C2T), _d(R1T),
+                     _d(R2T), _d(finite), n_threads())
+    return g1T, g2T, C1T, C2T, R1T, R2T, finite
 
 
 def bionj_native(D, V, plan):

@@ -37,6 +37,43 @@ const float NEG_INF = -INFINITY;
 static inline float maxc(float acc, float cand) {
   return cand > acc ? cand : acc;
 }
+
+// f(c) for each entry c of a padded row of E with row[c] >= 0, in order.
+// The leading run of such entries (every entry of the rows that
+// Graph.padded() and padded_from_edges build) costs no branch per empty
+// entry; any entry after the first empty one is found by one more scan.
+template <typename F>
+inline void each_edge(const int32_t* row, int32_t E, F&& f) {
+  int32_t c = 0;
+  for (; c < E && row[c] >= 0; ++c) f(c);
+  bool stray = false;
+  for (int32_t d = c; d < E; ++d) stray |= row[d] >= 0;
+  if (stray)
+    for (int32_t d = c; d < E; ++d)
+      if (row[d] >= 0) f(d);
+}
+
+// dst [dst_rows, nmax] of a launch plane: dst[j, i] = src[i, j] (src
+// [rows, cols] row-major, converted as a C cast: float64 to float32 rounds
+// to nearest) for j < cols and i < rows, pad elsewhere.  Tiles of 32 rows
+// keep the strided reads in cache.
+template <typename S, typename D>
+void transpose_pad(const S* src, int32_t rows, int32_t cols, D* dst,
+                   int32_t dst_rows, int32_t nmax, D pad) {
+  const int32_t T = 32;
+  for (int32_t i0 = 0; i0 < rows; i0 += T) {
+    const int32_t i1 = std::min(rows, i0 + T);
+    for (int32_t j = 0; j < cols; ++j) {
+      D* d = dst + (int64_t)j * nmax;
+      const S* s = src + j;
+      for (int32_t i = i0; i < i1; ++i) d[i] = (D)s[(int64_t)i * cols];
+    }
+  }
+  for (int32_t j = 0; j < cols; ++j)
+    std::fill(dst + (int64_t)j * nmax + rows, dst + (int64_t)(j + 1) * nmax,
+              pad);
+  std::fill(dst + (int64_t)cols * nmax, dst + (int64_t)dst_rows * nmax, pad);
+}
 }
 
 extern "C" {
@@ -1563,6 +1600,166 @@ int32_t gc_bionj(int32_t n, const double* D, const double* V,
     for (int32_t c = 0; c < 3; ++c)
       d_end[r * 3 + c] = dt[(size_t)c * n + r];
   return 0;
+}
+
+// ---------------------------------------------------------------------
+// Offset slots of one graph for the device DP batch (align/slots.py
+// _offset_costs_rep_numpy): the distinct offsets i - idx[i, c] of the
+// graph's repeat edges ascending, then those of its normal edges
+// ascending, written to offsets; the number of repeat slots to *n_rep.
+// Every repeat edge makes a slot, a NaN-cost one too.  Returns the number
+// of slots, or -1 when it exceeds max_offsets (an offset used by both
+// kinds counts twice).  offsets has room for min(max_offsets, n * E).
+// Offsets are marked in a table over their range, one byte per offset
+// and kind.
+int32_t gc_offset_slots(int32_t n, int32_t E, const int32_t* idx,
+                        const uint8_t* isrep, int32_t max_offsets,
+                        int32_t* offsets, int32_t* n_rep) {
+  std::vector<int64_t> offs;   // each edge's offset; a repeat edge's + 2^40
+  offs.reserve((size_t)n * 2);
+  int64_t lo = INT64_MAX, hi = INT64_MIN;
+  for (int32_t i = 0; i < n; ++i) {
+    const int32_t* row = idx + (int64_t)i * E;
+    const uint8_t* rrow = isrep + (int64_t)i * E;
+    each_edge(row, E, [&](int32_t c) {
+      const int64_t off = (int64_t)i - row[c];
+      lo = std::min(lo, off);
+      hi = std::max(hi, off);
+      offs.push_back(off + (rrow[c] ? (int64_t)1 << 40 : 0));
+    });
+  }
+  *n_rep = 0;
+  if (offs.empty()) return max_offsets < 0 ? -1 : 0;
+  const int64_t range = hi - lo + 1;
+  std::vector<uint8_t> mark(2 * range, 0);   // [repeat | normal]
+  for (const int64_t o : offs)
+    mark[o >= (int64_t)1 << 39 ? o - ((int64_t)1 << 40) - lo
+                               : range + o - lo] = 1;
+  int32_t count = 0;
+  for (int64_t q = 0; q < 2 * range; ++q) count += mark[q];
+  if (count > max_offsets) return -1;
+  int32_t k = 0;
+  for (int64_t q = 0; q < 2 * range; ++q) {
+    if (!mark[q]) continue;
+    offsets[k++] = (int32_t)(lo + (q < range ? q : q - range));
+    *n_rep += q < range;
+  }
+  return count;
+}
+
+// Slot cost tables of one graph (align/slots.py _offset_costs_rep_numpy)
+// on the count slots of gc_offset_slots (n_rep repeat slots first):
+// C [n, m] float32, m = max(count, 1), starts at +inf; each edge into node
+// i, in row-major padded order (the PredIterator order), lowers its slot's
+// cell with a strict < (the first of equal values stays, so 0.0 before
+// -0.0 keeps 0.0; a NaN never wins).  A normal edge brings its cost, a
+// repeat edge ri + re * (units - 1) in float32 (no FMA: the file builds
+// with -ffp-contract=off); a repeat edge of NaN cost is skipped, any other
+// sets rep [n, m] (uint8) at its cell whether or not it won.  With cap,
+// every non-finite cell then becomes cap_value (slots.inf_to_cap).
+// Returns count, or -1 when an edge's offset is in no slot of its kind or
+// the slots of a kind are not strictly ascending.
+int32_t gc_offset_costs(int32_t n, int32_t E, const int32_t* idx,
+                        const float* cost, const uint8_t* isrep,
+                        const int32_t* units, float ri, float re,
+                        int32_t count, int32_t n_rep, const int32_t* offsets,
+                        int32_t cap, float cap_value, float* C,
+                        uint8_t* rep) {
+  const int32_t m = std::max(count, 1);
+  // slot of each offset, per kind, over the slots' range (-1: none)
+  int64_t lo[2] = {0, 0}, range[2] = {0, 0};
+  std::vector<int32_t> slot[2];
+  const int32_t first[2] = {0, n_rep}, last[2] = {n_rep, count};
+  for (int kind = 0; kind < 2; ++kind) {
+    if (first[kind] == last[kind]) continue;
+    for (int32_t k = first[kind] + 1; k < last[kind]; ++k)
+      if (offsets[k] <= offsets[k - 1]) return -1;
+    lo[kind] = offsets[first[kind]];
+    range[kind] = (int64_t)offsets[last[kind] - 1] - lo[kind] + 1;
+    slot[kind].assign(range[kind], -1);
+    for (int32_t k = first[kind]; k < last[kind]; ++k)
+      slot[kind][offsets[k] - lo[kind]] = k;
+  }
+  std::fill(C, C + (int64_t)n * m, INFINITY);
+  std::memset(rep, 0, (size_t)n * m);
+  bool missing = false;
+  for (int32_t i = 0; i < n && !missing; ++i) {
+    float* crow = C + (int64_t)i * m;
+    uint8_t* rrow = rep + (int64_t)i * m;
+    each_edge(idx + (int64_t)i * E, E, [&](int32_t c) {
+      const int64_t e = (int64_t)i * E + c;
+      const int kind = isrep[e] ? 0 : 1;
+      const int64_t q = (int64_t)i - idx[e] - lo[kind];
+      if (q < 0 || q >= range[kind] || slot[kind][q] < 0) {
+        missing = true;
+        return;
+      }
+      const int32_t k = slot[kind][q];
+      float v = cost[e];
+      if (kind == 0) {
+        const int32_t u1 = (int32_t)((uint32_t)units[e] - 1u);
+        v = ri + re * (float)u1;
+        if (std::isnan(v)) return;
+        rrow[k] = 1;
+      }
+      crow[k] = v < crow[k] ? v : crow[k];
+    });
+  }
+  if (cap)
+    for (int64_t q = 0; q < (int64_t)n * m; ++q)
+      C[q] = std::isfinite(C[q]) ? C[q] : cap_value;
+  return missing ? -1 : count;
+}
+
+// The large planes of one launch of the device DP batch
+// (align/graph_dp_cuda.py _planes_numpy).  Pair b has sides[b] = (a1, a2,
+// k1, k2): nodes and slots of its two graphs, and ptrs[b] = addresses of
+// (sites1 [a1, dim] float64, sites2, C1 [a1, k1] float32, C2, rep1
+// [a1, k1] uint8, rep2).  It writes g1T[b] [dim, n1max] (the sites rounded
+// to float32, transposed, zero past a1), C1T[b] [opmax, n1max] (cap_value
+// outside C1's transpose), R1T[b] [opmax, n1max] (zero outside), the same
+// for side 2 at n2max, and finite[b] = the number of entries below
+// cap_value in C1 and in C2.  Pairs are dealt to the threads in turn, at
+// most one thread for each 2^18 plane entries (a thread's start costs
+// about as much as writing that many).
+void gc_pack_planes(int32_t B, int32_t dim, int32_t n1max, int32_t n2max,
+                    int32_t opmax, const int32_t* sides, const int64_t* ptrs,
+                    float cap_value, float* g1T, float* g2T, float* C1T,
+                    float* C2T, uint8_t* R1T, uint8_t* R2T, int64_t* finite,
+                    int32_t n_threads) {
+  const int64_t entries = (int64_t)B * (dim + 2 * opmax) * (n1max + n2max);
+  n_threads = (int32_t)std::min<int64_t>(n_threads, entries >> 18);
+  if (n_threads > B) n_threads = B;
+  if (n_threads < 1) n_threads = 1;
+  auto side = [&](int32_t b, int32_t s, int32_t nmax, float* gT, float* CT,
+                  uint8_t* RT) {
+    const int32_t a = sides[4 * b + s], k = sides[4 * b + 2 + s];
+    const double* sites = (const double*)(intptr_t)ptrs[6 * b + s];
+    const float* c = (const float*)(intptr_t)ptrs[6 * b + 2 + s];
+    const uint8_t* r = (const uint8_t*)(intptr_t)ptrs[6 * b + 4 + s];
+    transpose_pad(sites, a, dim, gT + (int64_t)b * dim * nmax, dim, nmax,
+                  0.0f);
+    transpose_pad(c, a, k, CT + (int64_t)b * opmax * nmax, opmax, nmax,
+                  cap_value);
+    transpose_pad(r, a, k, RT + (int64_t)b * opmax * nmax, opmax, nmax,
+                  (uint8_t)0);
+    int64_t f = 0;
+    for (int64_t q = 0; q < (int64_t)a * k; ++q) f += c[q] < cap_value;
+    finite[2 * b + s] = f;
+  };
+  auto work = [&](int32_t tid) {
+    for (int32_t b = tid; b < B; b += n_threads) {
+      side(b, 0, n1max, g1T, C1T, R1T);
+      side(b, 1, n2max, g2T, C2T, R2T);
+    }
+  };
+  if (n_threads == 1) {
+    work(0);
+  } else {
+    std::vector<std::thread> ts;
+    for (int32_t t = 0; t < n_threads; ++t) ts.emplace_back(work, t);
+    for (auto& t : ts) t.join();
+  }
 }
 
 }  // extern "C"
