@@ -24,7 +24,13 @@ slot tables and launch planes against the numpy bodies bit for bit, both
 timed (with ``--parent``, the parent tree's run of it beside).  Phase
 ``walls`` also runs ``--engine auto`` (golden; the levels it sent to the
 card) and ``--engine device`` (whether fam500 equals native, reported);
-``rates`` prints the calibration and the rates engine_policy.py holds.  Phase ``start`` holds ``walls``' fresh
+``rates`` prints the calibration and the rates engine_policy.py holds.
+Phase ``threads`` runs fam500 ``-i 0`` and ``-r -i 0`` on both tiers at
+``PROGRAPHMSA_THREADS=1`` beside ``walls``' and ``reroot``'s runs at the
+default pool, every output against its golden, with each wall and the
+level's host stage (``merge``, ``extend``, ``clean``, ``dp_fused``: native
+batches timed on the scheduler's thread).
+Phase ``start`` holds ``walls``' fresh
 processes of t_fam100 and fam500 ``-i 0`` against their goldens and prints
 their walls, their import of torch (``card_start``) and fam500's wait for
 its first guide tree, built in a process of its own (``tree_wait``).
@@ -763,12 +769,12 @@ def phase_levels(dev, tmp):
     return launches, root, total, total_dev, levels
 
 
-def cli_wall(args, out, extra=()):
+def cli_wall(args, out, extra=(), env=None):
     cmd = [sys.executable, "-m", "prographmsa_tpu_torch.cli", *args, *extra,
            "-o", out]
     t0 = time.perf_counter()
     p = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                       timeout=900)
+                       timeout=900, env=env)
     wall = time.perf_counter() - t0
     if p.returncode != 0:
         raise AssertionError("%s exited %d: %s" % (cmd, p.returncode,
@@ -837,7 +843,7 @@ def phase_walls(tmp, runs):
              "== %s native --timings" % name, err_nat)
         walls[name] = (w_port, w_nat)
         runs[name] = {"wall": w_port, "err": err, "out": o_port,
-                      "ref": o_nat}
+                      "ref": o_nat, "ref_wall": w_nat, "ref_err": err_nat}
         say(name, t0, port_s="%.3f" % w_port, native_s="%.3f" % w_nat,
             identical=True, pairs_device=ctr["torch_pairs_device"],
             pairs_total=ctr["torch_pairs_total"],
@@ -886,6 +892,50 @@ def phase_walls(tmp, runs):
                        timeout=300)
         startup[name] = "%.3f" % (time.perf_counter() - t1)
     say("startup", t0, **startup)
+
+
+# phase ``threads``: (run of phase walls or reroot, its golden)
+THREADS = (("fam500_i0", "fam500_i0.fasta"),
+           ("r_fam500_i0", "fam500_r_i0.fasta"))
+HOST_STAGE = ("merge", "extend", "clean", "dp_fused")
+
+
+def phase_threads(tmp, runs, smi):
+    """The level's host stage at one thread beside the default pool:
+    fam500 -i 0 and -r -i 0 on both tiers (card: --engine torch --device
+    cuda; native: --engine native) at PROGRAPHMSA_THREADS=1, each a CLI
+    process, and the default pool's runs of phases walls and reroot (their
+    walls as those phases took them); every output held to its golden.
+    Prints each wall and the phases merge, extend, clean and dp_fused
+    (native batches timed on the scheduler's thread: wall time), with the
+    card's name and power limit.  Fails on a wrong byte, never on a
+    time."""
+    t0 = time.perf_counter()
+    args_of = dict(WALLS + REROOT)
+    env1 = dict(os.environ, PROGRAPHMSA_THREADS="1")
+    for name, golden in THREADS:
+        r = runs[name]
+        for tier, extra, out, wall, err in (
+                ("card", ("--engine", "torch", "--device", "cuda"), r["out"],
+                 r["wall"], r["err"]),
+                ("native", ("--engine", "native"), r["ref"], r["ref_wall"],
+                 r["ref_err"])):
+            got = [("default", out, wall, err)]
+            o1 = os.path.join(tmp, "%s.%s.t1" % (name, tier))
+            w1, err1 = cli_wall(args_of[name], o1, extra + ("--timings",),
+                                env1)
+            note("== %s %s PROGRAPHMSA_THREADS=1 --timings" % (name, tier),
+                 err1)
+            got.append(("1", o1, w1, err1))
+            for threads, o, w, e in got:
+                if not same_file(o, os.path.join(GOLD, golden)):
+                    raise AssertionError("%s %s at %s threads differs from "
+                                         "%s" % (name, tier, threads, golden))
+                say("threads", t0, cell=name, tier=tier, threads=threads,
+                    golden=True, wall_s="%.3f" % w,
+                    **{k + "_s": timing_of(e, k) for k in HOST_STAGE})
+                t0 = time.perf_counter()
+    say("threads", t0, card=json.dumps(smi))
 
 
 def phase_start(runs):
@@ -1329,7 +1379,8 @@ def phase_reroot(tmp, runs, parent=None):
             run = json.load(f)
         w_port = run["t_main"] - t1
         runs[name] = {"wall": w_port, "err": err, "out": o_port,
-                      "ref": o_nat, "mesh": run.get("mesh")}
+                      "ref": o_nat, "mesh": run.get("mesh"),
+                      "ref_wall": w_nat, "ref_err": err_nat}
         launches = {k: run["launches"][k] for k in REROOT_KERNELS}
         launches_of[name] = launches
         sizes = run["batches"]
@@ -2503,6 +2554,7 @@ def main():
         runs = {}
         launches_reroot = phase_reroot(tmp, runs, parent)
         phase_walls(tmp, runs)
+        phase_threads(tmp, runs, smi)
         phase_start(runs)
         phase_fam1000_default(tmp, parent)
         launches_resume = phase_resume(tmp, runs, smi)

@@ -7,9 +7,9 @@ tree beside another's, each run a process of its own.
 
 CLI_ARGS are the port CLI's own; the default is fam500's root search,
 ``--fasta -r -i 0 fixtures/fam500.fasta``, held to
-``fixtures/golden/fam500_r_i0.fasta``.  For each pool size (``1`` sets
-``PROGRAPHMSA_THREADS=1``, so the pool's phases ``merge``, ``extend`` and
-``clean`` are wall time; ``default`` leaves the variable unset) and each
+``fixtures/golden/fam500_r_i0.fasta``.  For each pool size (``N`` sets
+``PROGRAPHMSA_THREADS=N``; ``default`` leaves the variable unset: the
+cores; a list may repeat sizes, for runs in turn) and each
 tier (``card``: ``--engine torch --device cuda``; ``native``: ``--engine
 native --device cpu``), the CLI runs from DIR (a checkout of another tree,
 e.g. a ``git archive`` of the parent unpacked into the gitignored
@@ -17,7 +17,10 @@ e.g. a ``git archive`` of the parent unpacked into the gitignored
 tree's native library, and for the card tier its kernels, are built
 first, in a process of their own.  Every output is held to the golden.
 Prints one JSON line per run (tree, tier, threads, wall from spawn to
-exit, every phase of its ``--timings`` report), then the card's name and
+exit, every phase of its ``--timings`` report: ``clean``, ``dp_fused``,
+``merge`` and ``extend`` are wall time on the scheduler's thread in a
+tree with the native batches, sums over the pool's threads in a tree
+before them), then the card's name and
 power limit as ``nvidia-smi`` gives them; ``--out`` also writes the runs
 to FILE as one JSON list.
 """

@@ -176,6 +176,13 @@ def _graph_from_edge_arrays(nodes: np.ndarray, arrs) -> Graph:
     return Graph.from_padded(sites, *padded)
 
 
+def _unused_penalty(options, support) -> np.float32:
+    """The half-life penalty of a child's unused edges (GraphAlign.h:
+    685-722), float32."""
+    asp = options.altsplice_prob
+    return f32(-LOG(asp + (1.0 - asp) * (1.0 - support)))
+
+
 def merge_graphs(g1: Graph, g2: Graph, mapping1, mapping2, model1, model2,
                  support1: float, support2: float, options) -> AncestralResult:
     nodes: List[np.ndarray] = []
@@ -212,9 +219,8 @@ def merge_graphs(g1: Graph, g2: Graph, mapping1, mapping2, model1, model2,
                 nodes[j] = _norm_or_zero(P2 @ g2.sites[m2[j]])
         nodes_arr = np.array(nodes)
 
-    asp = options.altsplice_prob
-    up1 = f32(-LOG(asp + (1.0 - asp) * (1.0 - support1)))
-    up2 = f32(-LOG(asp + (1.0 - asp) * (1.0 - support2)))
+    up1 = _unused_penalty(options, support1)
+    up2 = _unused_penalty(options, support2)
 
     if use_native:
         from .. import native
@@ -235,6 +241,24 @@ def merge_graphs(g1: Graph, g2: Graph, mapping1, mapping2, model1, model2,
     graph = Graph.from_maps(nodes_arr, edges, repeats)
     return AncestralResult(graph=graph, mapping1=m1, mapping2=m2,
                            is_matched=matched)
+
+
+def merge_graphs_batch(nodes, options) -> List[AncestralResult]:
+    """``merge_graphs`` of many nodes in one native batch
+    (native.merge_batch; ``native.batches(options)`` must hold), each node
+    (g1, g2, mapping1, mapping2, outmapping1, outmapping2, model1, model2,
+    support1, support2) with the mappings of the two cleaned graphs'
+    alignment and the cleanings' outmappings (unclean_mapping is applied
+    in the batch).  The same graphs, mappings and matched flags as
+    merge_graphs' native branch, the flags and mappings as arrays."""
+    from .. import native
+    got = native.merge_batch([
+        (map1, map2, om1, om2, g1, g2, mo1.P, mo2.P,
+         _unused_penalty(options, s1), _unused_penalty(options, s2))
+        for g1, g2, map1, map2, om1, om2, mo1, mo2, s1, s2 in nodes])
+    return [AncestralResult(graph=Graph.from_padded(sites, *padded),
+                            mapping1=m1, mapping2=m2, is_matched=matched)
+            for sites, m1, m2, matched, *padded in got]
 
 
 def merge_graphs_incremental(anc_graph: Graph, graph: Graph, anc_mapping,

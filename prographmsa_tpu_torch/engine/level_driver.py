@@ -21,6 +21,20 @@ card when the engine sends them there, and ``align_tasks`` aligns and merges
 independent nodes.  Under --early_refinement each level's refinement pairs
 (engine/early_refinement.py) go through ``align_items`` as one more batch
 after the level's merges.
+
+The host stage of a batch runs in the native library's batches
+(native.batches): every graph's cleaning, every host alignment, every
+merge and every row block of the batch in one call each, spread over
+``PROGRAPHMSA_THREADS`` threads (default: the cores) with the GIL
+released; Python then builds each node's objects on this thread.  Under
+--timings ``clean``, ``dp_fused``, ``merge`` and ``extend`` time those
+calls once a batch: wall time on this thread.  The nodes' result objects
+are built after the batches, in no phase.  The pairs the library declines
+(a repeat slot) take the staged path over ``HostPool``'s threads, whose
+``scores``, ``dp_fill`` and ``backtrack`` phases sum over the threads.
+Without the library (``PROGRAPHMSA_NATIVE=0``, no compiler) each node
+runs its Python path, the host alignments and merges over ``HostPool``'s
+threads.
 """
 
 from __future__ import annotations
@@ -30,26 +44,29 @@ from concurrent.futures import ThreadPoolExecutor
 
 from .. import native, timings
 from ..align.backtrack import AlignmentResult
+from ..align.merge import merge_graphs_batch
 from ..align.scores import DynProgScores
 from ..engine_policy import use_torch_dp
 from ..errors import ParityError
 from .early_refinement import refine, refinement_inputs
+from ..graph.graph import clean_graphs
 from .progressive import (
     align_graphs, align_progressive_results, create_ancestral_seq_name,
-    prealign_node, progressive_alignment)
+    extend_blocks, node_models, prealign_node, progressive_alignment,
+    staged_align)
 
 
 class HostPool:
-    """The native tier's threads: independent host work (alignments the
-    batch hands back or that stay on the host, merges) spread over them;
-    the native code drops the GIL."""
+    """Threads for the host work that the native batches do not take: every
+    node's host alignment and merge on the path without the library, and
+    the staged alignments of the pairs the library declines."""
 
     def __init__(self):
         self.nt = native.n_threads()
         self.pool = (ThreadPoolExecutor(max_workers=self.nt)
                      if self.nt > 1 else None)
-        if self.pool is not None:
-            native.lib()  # build/load once before the pool races on it
+        if native.lib() is not None:   # build/load once, on this thread
+            native._blas_ptrs()
 
     def run(self, n, fn):
         """``fn(ks)`` over shards of range(n), one per thread."""
@@ -72,11 +89,13 @@ def align_items(items, options, device, engine, pool, mesh=None):
     """One ``AlignmentResult`` per (g1, g2, model, scores) item: the batch
     on ``device``, or split over the shards of ``mesh``
     (engine_policy.level_mesh), when ``engine`` sends the items' cells
-    there (engine_policy.use_torch_dp), the host ``align_graphs`` for the
-    rest and for every pair the batch hands back.  Called from the
-    scheduler's main thread only, never from ``pool``: over processes the
-    batch issues collectives, which every process must reach in one
-    order."""
+    there (engine_policy.use_torch_dp), the host for the rest and for
+    every pair the batch hands back: one native batch (native.align_batch,
+    ``--timings`` phase ``dp_fused``), then ``staged_align`` for each pair
+    it declines, over ``pool``; without the batches ``align_graphs`` over
+    ``pool``.  Called from the scheduler's main thread only, never from
+    ``pool``: over processes the batch issues collectives, which every
+    process must reach in one order."""
     if not items:
         return []
     batch = [None] * len(items)
@@ -98,6 +117,23 @@ def align_items(items, options, device, engine, pool, mesh=None):
             AlignmentResult(score=r[2], n_tr_indels=r[3], mapping1=r[0],
                             mapping2=r[1]) for r in batch]
     host = [k for k, a in enumerate(alns) if a is None]
+    if host and native.batches(options):
+        with timings.phase("dp_fused"):
+            got = native.align_batch([items[k] for k in host])
+        for k, a in zip(host, got):
+            alns[k] = a
+        # the pairs the library declines (a repeat slot), their staged way
+        # over ``pool``: its fill and backtrack release the GIL
+        declined = [k for k in host if alns[k] is None]
+
+        def staged(js):
+            for j in js:
+                g1, g2, model, scores = items[declined[j]]
+                alns[declined[j]] = staged_align(g1, g2, model, options,
+                                                 scores)
+
+        pool.run(len(declined), staged)
+        return alns
 
     def on_host(ks):
         for k in ks:
@@ -114,9 +150,13 @@ def align_tasks(tasks, factory, options, spec, device, engine, pool,
     """Align and merge independent nodes, each task
     (r1, r2, distance1, distance2, support1, support2) as
     ``align_progressive_results`` takes them: models and cleaning on the
-    host, the pairs through ``align_items``, the merges over ``pool``.
+    host, the pairs through ``align_items``, the merges in native batches
+    (``_align_tasks_native``), or without them over ``pool``.
     Returns (result, n_tr_indels of the node's own alignment) per task; the
     caller prints the TR lines in its order."""
+    if native.batches(options):
+        return _align_tasks_native(tasks, factory, options, spec, device,
+                                   engine, pool, mesh)
     preps, items = [], []
     for r1, r2, d1, d2, _s1, _s2 in tasks:
         pre = prealign_node(r1, r2, d1, d2, factory, options)
@@ -137,6 +177,41 @@ def align_tasks(tasks, factory, options, spec, device, engine, pool,
 
     pool.run(len(tasks), merge)
     return out
+
+
+def _align_tasks_native(tasks, factory, options, spec, device, engine,
+                        pool, mesh):
+    """``align_tasks`` with the host stage in native batches: the
+    cleanings, the merges and the row blocks each one call over the
+    tasks, the host alignments one in ``align_items``; then each node's
+    result object built here, in the tasks' order."""
+    models = [node_models(r1, r2, d1, d2, factory, options)
+              for r1, r2, d1, d2, _s1, _s2 in tasks]
+    with timings.phase("clean"):
+        cleaned = clean_graphs([r.graph for t in tasks for r in t[:2]],
+                               options)
+    preps, items = [], []
+    for k, (model, model1, model2) in enumerate(models):
+        (cg1, om1), (cg2, om2) = cleaned[2 * k], cleaned[2 * k + 1]
+        preps.append((model, model1, model2, cg1, om1, cg2, om2))
+        items.append((cg1, cg2, model, DynProgScores(cg1, cg2, model,
+                                                     options)))
+    alns = align_items(items, options, device, engine, pool, mesh)
+    with timings.phase("merge"):
+        ancs = merge_graphs_batch(
+            [(r1.graph, r2.graph, aln.mapping1, aln.mapping2, p[4], p[6],
+              p[1], p[2], s1, s2)
+             for (r1, r2, _d1, _d2, s1, s2), aln, p
+             in zip(tasks, alns, preps)], options)
+    with timings.phase("extend"):
+        blocks = extend_blocks(
+            [(anc.graph.size, ((anc.mapping1, t[0]), (anc.mapping2, t[1])))
+             for t, anc in zip(tasks, ancs)], spec.gap_code)
+    return [(align_progressive_results(
+        r1, r2, d1, d2, s1, s2, factory, options, spec, prealigned=p,
+        aln=aln, anc=anc, tr_print=False, block=block), aln.n_tr_indels)
+        for (r1, r2, d1, d2, s1, s2), p, aln, anc, block
+        in zip(tasks, preps, alns, ancs, blocks)]
 
 
 def _collect_nodes(tree):
@@ -213,9 +288,10 @@ def progressive_alignment_batched(spec, sequences, tree, repeats, csprofile,
 def _refine_level(ready, nodes, results, index, factory, options, spec,
                   device, engine, pool, mesh=None):
     """The early refinement of every node of a level: all its re-alignments
-    in one ``align_items`` batch, then each node's incremental merges over
-    ``pool``; the refined result replaces the node's, where its parent and
-    grandparent read it."""
+    in one ``align_items`` batch, then each node's incremental merges on
+    this thread (mostly Python: over threads they wait for the GIL); the
+    refined result replaces the node's, where its parent and grandparent
+    read it."""
     jobs, items = [], []
     for i in ready:
         inputs = refinement_inputs(results[i], nodes[i][0], factory, options,
@@ -229,10 +305,6 @@ def _refine_level(ready, nodes, results, index, factory, options, spec,
                   for r, m in zip(old_results, models)]
     alns = align_items(items, options, device, engine, pool, mesh)
 
-    def merge(ks):
-        for k in ks:
-            i, old_results, models, at = jobs[k]
-            results[i] = refine(results[i], old_results, models,
-                                alns[at:at + len(old_results)], spec)
-
-    pool.run(len(jobs), merge)
+    for i, old_results, models, at in jobs:
+        results[i] = refine(results[i], old_results, models,
+                            alns[at:at + len(old_results)], spec)

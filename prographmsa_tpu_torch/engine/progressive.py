@@ -56,15 +56,22 @@ def align_graphs(g1: Graph, g2: Graph, model, options,
             scores = DynProgScores(g1, g2, model, options)
     if use_native:
         # fused native node alignment: S + fill + backtrack in ONE call
-        # with thread-local scratch — the staged path below allocates five
-        # numpy matrices and crosses ctypes ~60 times per node, which on
-        # short guide-tree pairs costs more than the DP itself
+        # with thread-local scratch — staged_align allocates five numpy
+        # matrices and crosses ctypes ~60 times per node, which on short
+        # guide-tree pairs costs more than the DP itself
         with timings.phase("dp_fused"):
             from .. import native
             aln = native.align_node_native(g1, g2, model, scores)
         if aln is not None:
             return aln, scores
+    return staged_align(g1, g2, model, options, scores), scores
 
+
+def staged_align(g1: Graph, g2: Graph, model, options, scores):
+    """``align_graphs`` stage by stage (S, fill, backtrack; each native
+    where the library takes it, else numpy): the path of the pairs the
+    fused native call declines."""
+    use_native = options.engine != "numpy"
     with timings.phase("scores"):
         S = precompute_scores(g1, g2, model, scores, options.engine)
 
@@ -83,7 +90,7 @@ def align_graphs(g1: Graph, g2: Graph, model, options,
             aln = native.backtrack_native(g1, g2, dp, scores)
         if aln is None:
             aln = backtrack(g1, g2, dp, scores)
-    return aln, scores
+    return aln
 
 
 class RowBlock:
@@ -161,38 +168,81 @@ def _extend_into(dest, hit, src, gap_code):
     dest[np.flatnonzero(~hit)] = gap_code
 
 
-def extend_children(result, children, gap_code):
+def _names(children):
+    names = []
+    for _mapping, child in children:
+        names += child.aligned_sequences
+    return names
+
+
+def extend_children(result, children, gap_code, block=None):
     """Gap-extend each (mapping, child result) of ``children`` in turn
     through the merged graph (ProgressiveAlignment.h:245-287): the
     children's rows into one new RowBlock of ``result``, one copy of whole
     columns a child (from the child's own block where that still holds its
-    rows), then their TR homologies."""
+    rows), then their TR homologies.  ``block`` is the (cols, names) that
+    ``extend_blocks`` already filled for this node; its caller times it."""
+    if block is not None:
+        _take_block(result, children, *block)
+        return
     with timings.phase("extend"):
-        hits = [_hit(result, mapping) for mapping, _child in children]
-        names = []
-        for _mapping, child in children:
-            names += child.aligned_sequences
+        names = _names(children)
         cols = np.empty((result.graph.size - 2, len(names)), dtype=np.int16)
         r0 = 0
-        for hit, (_mapping, child) in zip(hits, children):
+        for mapping, child in children:
             rows = child.aligned_sequences
             if not rows:
                 continue
+            hit = _hit(result, mapping)
             b = row_block(child)
             src = b.cols if b is not None else \
                 _read_rows(rows, int(np.count_nonzero(hit)))
             _extend_into(cols[:, r0:r0 + len(rows)], hit, src, gap_code)
             r0 += len(rows)
-        result.block = RowBlock(cols, names)
-        result.aligned_sequences.update(zip(names, result.block.rows))
-        for hit, (_mapping, child) in zip(hits, children):
-            k = int(np.count_nonzero(hit))
-            for original, source in zip(child.tr_homologies,
-                                        child.tr_source):
-                extended = np.full(len(hit), -1, dtype=np.int64)
-                extended[hit] = original[:k]
-                result.tr_homologies.append(extended)
-                result.tr_source.append(source)
+        _take_block(result, children, cols, names)
+
+
+def _take_block(result, children, cols, names):
+    """``result``'s rows from its filled block, then the children's TR
+    homologies extended through the merged graph."""
+    result.block = RowBlock(cols, names)
+    result.aligned_sequences.update(zip(names, result.block.rows))
+    for mapping, child in children:
+        if not child.tr_homologies:
+            continue
+        hit = _hit(result, mapping)
+        k = int(np.count_nonzero(hit))
+        for original, source in zip(child.tr_homologies, child.tr_source):
+            extended = np.full(len(hit), -1, dtype=np.int64)
+            extended[hit] = original[:k]
+            result.tr_homologies.append(extended)
+            result.tr_source.append(source)
+
+
+def extend_blocks(nodes, gap_code):
+    """The row blocks of many merged nodes in one native batch
+    (native.extend_batch), each node (merged graph size, children) with
+    ``children`` as ``extend_children`` takes them: per node the (cols,
+    names) that ``extend_children`` would fill, for its ``block``."""
+    from .. import native
+    out, batch = [], []
+    for size, children in nodes:
+        names = _names(children)
+        cols = np.empty((size - 2, len(names)), dtype=np.int16)
+        srcs = []
+        for mapping, child in children:
+            rows = child.aligned_sequences
+            if not rows:
+                continue
+            b = row_block(child)
+            src = b.cols if b is not None else _read_rows(
+                rows, int(np.count_nonzero(np.asarray(mapping[1:size - 1])
+                                           != -1)))
+            srcs.append((mapping, src, len(rows)))
+        batch.append((cols, srcs))
+        out.append((cols, names))
+    native.extend_batch(batch, gap_code)
+    return out
 
 
 def create_ancestral_seq_name(aligned_sequences) -> str:
@@ -239,6 +289,17 @@ def prealign_node(r1, r2, distance1, distance2, factory, options):
     """The model/cleaning stage of align_progressive_results, split out so
     the level-batched scheduler can prepare a whole level before one batched
     kernel launch (ProgressiveAlignment.h:418-437)."""
+    model, model1, model2 = node_models(r1, r2, distance1, distance2,
+                                        factory, options)
+    with timings.phase("clean"):
+        cg1, outmap1 = clean_graph(r1.graph, options)
+        cg2, outmap2 = clean_graph(r2.graph, options)
+    return model, model1, model2, cg1, outmap1, cg2, outmap2
+
+
+def node_models(r1, r2, distance1, distance2, factory, options):
+    """The node's models (model, model1, model2): the pair's and each
+    child's (ProgressiveAlignment.h:418-431)."""
     gap_distance1 = distance1
     gap_distance2 = distance2
     if r1.is_csprofile:
@@ -251,11 +312,7 @@ def prealign_node(r1, r2, distance1, distance2, factory, options):
     model = factory.get_model(distance, options, gap_distance)
     model1 = factory.get_model(distance1, options, gap_distance1)
     model2 = factory.get_model(distance2, options, gap_distance2)
-
-    with timings.phase("clean"):
-        cg1, outmap1 = clean_graph(r1.graph, options)
-        cg2, outmap2 = clean_graph(r2.graph, options)
-    return model, model1, model2, cg1, outmap1, cg2, outmap2
+    return model, model1, model2
 
 
 def merge_node(r1, r2, aln, prealigned, support1, support2, options):
@@ -273,9 +330,11 @@ def merge_node(r1, r2, aln, prealigned, support1, support2, options):
 def align_progressive_results(r1, r2, distance1, distance2, support1,
                               support2, factory, options, spec,
                               prealigned=None, aln=None, anc=None,
-                              tr_print=True):
-    """ProgressiveAlignment.h:413-476.  ``prealigned``/``aln``/``anc`` let
-    the level-batched scheduler inject the already-computed stage results;
+                              tr_print=True, block=None):
+    """ProgressiveAlignment.h:413-476.  ``prealigned``/``aln``/``anc``/
+    ``block`` let the level-batched scheduler inject the already-computed
+    stage results (``block``: the row block's (cols, names) from
+    ``extend_blocks``);
     ``tr_print=False`` defers the per-node TR stderr line to the caller
     (the level scheduler finishes nodes out of post-order and re-emits the
     lines in the reference's order afterwards)."""
@@ -300,7 +359,7 @@ def align_progressive_results(r1, r2, distance1, distance2, support1,
     result.graph = anc.graph
 
     extend_children(result, ((anc.mapping1, r1), (anc.mapping2, r2)),
-                    spec.gap_code)
+                    spec.gap_code, block)
 
     if options.ancestral_flag:
         if len(r1.aligned_sequences) > 1:

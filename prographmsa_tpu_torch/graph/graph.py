@@ -439,6 +439,23 @@ def clean_graph(graph: Graph, options):
     return Graph(sites, preds, reps), outmapping
 
 
+def clean_graphs(graphs, options):
+    """``clean_graph`` of each of ``graphs`` in one native batch
+    (native.clean_batch; the library must be loaded): the same (cleaned
+    Graph, outmapping) pairs, a linear chain aliased to itself as
+    clean_graph's fast path aliases it."""
+    from .. import native
+    repeat_ext = INF if options.repeatext_prob == 0 else np.float32(0.0)
+    out = []
+    for g, r in zip(graphs, native.clean_batch(graphs, repeat_ext)):
+        if r is None:
+            out.append((g, np.arange(g.size, dtype=np.int64)))
+        else:
+            sites, outmapping, *padded = r
+            out.append((Graph.from_padded(sites, *padded), outmapping))
+    return out
+
+
 def unclean_mapping(mapping: List[int], outmapping: np.ndarray) -> List[int]:
     """CleanedGraph::uncleanMapping (CleanedGraph.h:152-160)."""
     m = np.asarray(mapping, dtype=np.int64)

@@ -158,6 +158,28 @@ def lib():
         L.gc_pack_planes.argtypes = [i32, i32, i32, i32, i32, pi32, pi64, f32,
                                      pf32, pf32, pf32, pf32, pu8, pu8, pi64,
                                      i32]
+        pv = ctypes.c_void_p
+        L.gc_clean_batch_begin.restype = pv
+        L.gc_clean_batch_begin.argtypes = [i32, pi32, pi64, f32, pi32, i32]
+        L.gc_clean_batch_finish.restype = i32
+        L.gc_clean_batch_finish.argtypes = [pv, pi32, pi64, i32]
+        L.gc_align_batch_begin.restype = pv
+        L.gc_align_batch_begin.argtypes = [i32, pi32, pi64, pf32, pi32, pf32,
+                                           i32]
+        L.gc_align_batch_finish.restype = None
+        L.gc_align_batch_finish.argtypes = [pv, pi32, pi32, pi32]
+        L.gc_merge_batch_begin.restype = pv
+        L.gc_merge_batch_begin.argtypes = [i32, pi32, pi64, pf32, pvoid,
+                                           pvoid, i32, pi32, i32]
+        L.gc_merge_batch_finish.restype = i32
+        L.gc_merge_batch_finish.argtypes = [pv, pi32, pi64, i32]
+        L.gc_batch_free.restype = None
+        L.gc_batch_free.argtypes = [pv]
+        L.gc_batch_probe.restype = None
+        L.gc_batch_probe.argtypes = [ctypes.c_int64, pi32]
+        L.gc_extend_batch.restype = None
+        L.gc_extend_batch.argtypes = [i32, pi32, pi64, pi32, pi32, pi64,
+                                      ctypes.c_int16, pi32, i32]
         _lib = L
         return _lib
 
@@ -751,3 +773,260 @@ def bionj_native(D, V, plan):
                   _d(d_end)) < 0:
         return None
     return joins, lens, d_end
+
+
+# ----------------------------------------------------------------------
+# A level's host stage in batches (engine/level_driver.py): each call
+# takes every item of a level, crosses into the library once and spreads
+# the items over ``n_threads()`` threads there, with the GIL released, so
+# the Python per item is a few array allocations.  Each item's result is
+# that of the per-item wrapper above, bit for bit.  The library must be
+# loaded (``batches(options)``); an error inside a batch raises and is
+# never retried on another path.
+
+
+def batches(options) -> bool:
+    """Whether the level's host stage runs in native batches: the library
+    loaded, BLAS resolved for the merges, and a host engine that takes the
+    native kernels (``auto`` or ``native``)."""
+    return (getattr(options, "engine", "auto") in ("auto", "native")
+            and lib() is not None and _blas_ptrs() is not None)
+
+
+BATCH_KINDS = ("clean_begin", "clean_finish", "align", "merge_begin",
+               "merge_finish", "extend")
+
+
+def batch_probe(grain=0):
+    """The most threads each kind of batch call (BATCH_KINDS) ran on since
+    the last probe, as a dict, the count then started anew; from now on
+    every batch gives a thread ``grain`` units of work in place of its own
+    constant (0: its own).  The tests lower the grain so that small inputs
+    run the threaded paths."""
+    used = np.zeros(len(BATCH_KINDS), np.int32)
+    lib().gc_batch_probe(int(grain), _d(used))
+    return dict(zip(BATCH_KINDS, used.tolist()))
+
+
+def _c(a, dtype):
+    """``a`` as a C-contiguous array of ``dtype``, converted only where it
+    is not one."""
+    if a.dtype == dtype and a.flags.c_contiguous:
+        return a
+    return np.ascontiguousarray(a, dtype=dtype)
+
+
+def _staged(h, what):
+    if not h:
+        raise MemoryError("%s: an item could not allocate" % what)
+    return h
+
+
+def clean_batch(graphs, repeat_ext):
+    """gc_clean_batch_begin/finish over ``graphs``: per graph None where it
+    is a linear chain that cleans to itself (clean_graph's fast path),
+    else (sites [m, dim] float64, outmapping [m] int64, idx, cost, isrep,
+    units [m, E]), identical to clean_graph's native branch.  Raises
+    AssertionError on the reachability invariant, as clean_graph does."""
+    L = lib()
+    B = len(graphs)
+    dims = np.empty((B, 3), np.int32)
+    ptrs = np.empty((B, 5), np.int64)
+    held = []
+    for b, g in enumerate(graphs):
+        idx, cost, isrep, units = g.padded()
+        arrs = (_c(idx, np.int32), _c(cost, np.float32), _c(isrep, np.bool_),
+                _c(units, np.int32), _c(g.sites, np.float64))
+        held.append(arrs)
+        dims[b] = (idx.shape[0], idx.shape[1], arrs[4].shape[1])
+        ptrs[b] = [_d(a) for a in arrs]
+    sizes = np.empty((B, 3), np.int32)
+    h = _staged(L.gc_clean_batch_begin(B, _d(dims), _d(ptrs),
+                                       np.float32(repeat_ext), _d(sizes),
+                                       n_threads()), "gc_clean_batch_begin")
+    try:
+        if (sizes[:, 0] < 0).any():
+            raise AssertionError("clean_graph reachability invariant")
+        out = np.zeros((B, 6), np.int64)
+        res = [None] * B
+        for b, (st, m, E) in enumerate(sizes.tolist()):
+            if st == 1:
+                continue
+            if m < 2 or E < 1:
+                raise RuntimeError("gc_clean_batch_begin: graph %d cleans to "
+                                   "%d nodes of width %d" % (b, m, E))
+            arrs = (np.empty((m, dims[b, 2]), np.float64),
+                    np.empty(m, np.int64), np.empty((m, E), np.int32),
+                    np.empty((m, E), np.float32), np.empty((m, E), np.bool_),
+                    np.empty((m, E), np.int32))
+            out[b] = [_d(a) for a in arrs]
+            res[b] = arrs
+        if L.gc_clean_batch_finish(h, _d(sizes), _d(out), n_threads()) < 0:
+            raise MemoryError("gc_clean_batch_finish: an item could not "
+                              "allocate")
+    finally:
+        L.gc_batch_free(h)
+    return res
+
+
+def align_batch(items):
+    """gc_align_batch_begin/finish over (g1, g2, model, scores) items: per
+    item an AlignmentResult (mappings as int32 arrays), or None where
+    align_node_native declines the pair (a repeat edge, or the backtrack
+    failed; the caller aligns those its staged way)."""
+    from ..align.backtrack import AlignmentResult
+
+    L = lib()
+    B = len(items)
+    dims = np.empty((B, 5), np.int32)
+    ptrs = np.empty((B, 10), np.int64)
+    scal = np.empty((B, 8), np.float32)
+    held = []
+    for b, (g1, g2, model, sc) in enumerate(items):
+        idx1, cost1, isrep1, _ = g1.padded()
+        idx2, cost2, isrep2, _ = g2.padded()
+        arrs = (_c(idx1, np.int32), _c(cost1, np.float32),
+                _c(isrep1, np.bool_), _c(idx2, np.int32),
+                _c(cost2, np.float32), _c(isrep2, np.bool_),
+                _c(g1.sites, np.float64), _c(g2.sites, np.float64),
+                _c(model.M, np.float64), _c(model.pi, np.float64))
+        held.append(arrs)
+        dims[b] = (idx1.shape[0], idx2.shape[0], idx1.shape[1],
+                   idx2.shape[1], arrs[8].shape[0])
+        ptrs[b] = [_d(a) for a in arrs]
+        scal[b] = (sc.match_init, sc.gap_extend, sc.gap_init, sc.start_gap,
+                   sc.start_init, sc.end_match, sc.end_gap, sc.end_skip)
+    n = np.empty(B, np.int32)
+    score = np.empty(B, np.float32)
+    h = _staged(L.gc_align_batch_begin(B, _d(dims), _d(ptrs), _d(scal),
+                                       _d(n), _d(score), n_threads()),
+                "gc_align_batch_begin")
+    try:
+        total = int(n[n > 0].sum())
+        maps = np.empty((2, total), np.int32)
+        L.gc_align_batch_finish(h, _d(n), _d(maps[0]), _d(maps[1]))
+    finally:
+        L.gc_batch_free(h)
+    out, o = [None] * B, 0
+    for b, k in enumerate(n.tolist()):
+        if k < 0:
+            continue
+        out[b] = AlignmentResult(score=score[b], n_tr_indels=0,
+                                 mapping1=maps[0, o:o + k],
+                                 mapping2=maps[1, o:o + k])
+        o += k
+    return out
+
+
+def merge_batch(nodes):
+    """gc_merge_batch_begin/finish over nodes (mapping1, mapping2 of the
+    cleaned graphs, outmapping1, outmapping2, g1, g2, P1, P2, up1, up2):
+    per node (sites [n, dim] float64, m1 [n] int32, m2,
+    matched [n] bool, idx, cost, isrep, units [n, E]), identical to
+    merge_graphs' native branch on the uncleaned mappings.  Raises
+    AssertionError("error in mapping") as unify_native does, also for a
+    mapping index outside its graph."""
+    L = lib()
+    gemv, ddot, blas64, _ = _blas_ptrs()
+    B = len(nodes)
+    dims = np.empty((B, 8), np.int32)
+    ptrs = np.empty((B, 16), np.int64)
+    ups = np.empty((B, 2), np.float32)
+    held = []
+    for b, (map1, map2, om1, om2, g1, g2, P1, P2, up1,
+            up2) in enumerate(nodes):
+        a1, a2 = _c(np.asarray(map1), np.int32), _c(np.asarray(map2),
+                                                     np.int32)
+        if a1.shape != a2.shape or a1.ndim != 1:
+            raise ValueError("merge_batch: node %d's mappings have shapes "
+                             "%s and %s" % (b, a1.shape, a2.shape))
+        p1, p2 = g1.padded(), g2.padded()
+        arrs = (a1, a2, _c(om1, np.int64), _c(om2, np.int64),
+                _c(g1.sites, np.float64), _c(p1[0], np.int32),
+                _c(p1[1], np.float32), _c(p1[2], np.bool_),
+                _c(p1[3], np.int32), _c(g2.sites, np.float64),
+                _c(p2[0], np.int32), _c(p2[1], np.float32),
+                _c(p2[2], np.bool_), _c(p2[3], np.int32),
+                _c(P1, np.float64), _c(P2, np.float64))
+        held.append(arrs)
+        dims[b] = (len(a1), p1[0].shape[0], p1[0].shape[1], p2[0].shape[0],
+                   p2[0].shape[1], arrs[4].shape[1], len(arrs[2]),
+                   len(arrs[3]))
+        ptrs[b] = [_d(a) for a in arrs]
+        ups[b] = (up1, up2)
+    sizes = np.empty((B, 3), np.int32)
+    h = _staged(L.gc_merge_batch_begin(B, _d(dims), _d(ptrs), _d(ups), gemv,
+                                       ddot, blas64, _d(sizes), n_threads()),
+                "gc_merge_batch_begin")
+    try:
+        if (sizes[:, 0] < 0).any():
+            raise AssertionError("error in mapping")
+        out = np.empty((B, 8), np.int64)
+        res = []
+        for b, (_st, n, E) in enumerate(sizes.tolist()):
+            if n < 2 or E < 1:
+                raise RuntimeError("gc_merge_batch_begin: node %d merges to "
+                                   "%d nodes of width %d" % (b, n, E))
+            arrs = (np.empty((n, dims[b, 5]), np.float64),
+                    np.empty(n, np.int32), np.empty(n, np.int32),
+                    np.empty(n, np.bool_), np.empty((n, E), np.int32),
+                    np.empty((n, E), np.float32), np.empty((n, E), np.bool_),
+                    np.empty((n, E), np.int32))
+            out[b] = [_d(a) for a in arrs]
+            res.append(arrs)
+        if L.gc_merge_batch_finish(h, _d(sizes), _d(out), n_threads()) < 0:
+            raise MemoryError("gc_merge_batch_finish: an item could not "
+                              "allocate")
+    finally:
+        L.gc_batch_free(h)
+    return res
+
+
+def extend_batch(nodes, gap_code):
+    """gc_extend_batch: per node (dest [C, R] int16, [(mapping [C + 2]
+    int32, src, rows), ...] one entry a child in turn), where src is the
+    child's rows as a RowBlock lays them out ([k, rows] int16): each
+    child's mapped columns take its source columns in order, the others
+    the gap code; the children's rows sit side by side in dest.  Raises
+    ValueError where a child maps more columns than its source holds
+    (numpy's shape error)."""
+    L = lib()
+    B = len(nodes)
+    dims = np.empty((B, 2), np.int32)
+    ptrs = np.empty(B, np.int64)
+    coff = np.empty(B, np.int32)
+    K = sum(len(ch) for _dest, ch in nodes)
+    cdims = np.empty((max(K, 1), 2), np.int32)
+    cptrs = np.empty((max(K, 1), 2), np.int64)
+    held = []
+    c = 0
+    for b, (dest, children) in enumerate(nodes):
+        if dest.dtype != np.int16 or not dest.flags.c_contiguous:
+            raise ValueError("extend_batch: node %d's block is not a "
+                             "C-contiguous int16 array" % b)
+        C, R = dest.shape
+        dims[b] = (C, len(children))
+        ptrs[b] = _d(dest)
+        coff[b] = c
+        rows_sum = 0
+        for mapping, src, rows in children:
+            m = _c(np.asarray(mapping), np.int32)
+            s = _c(np.asarray(src), np.int16)
+            if m.shape != (C + 2,) or s.ndim != 2 or s.shape[1] != rows:
+                raise ValueError("extend_batch: node %d's child has mapping "
+                                 "%s and source %s for %d rows"
+                                 % (b, m.shape, s.shape, rows))
+            held.append((m, s))
+            cdims[c] = (rows, s.shape[0])
+            cptrs[c] = (_d(m), _d(s))
+            rows_sum += rows
+            c += 1
+        if rows_sum != R:
+            raise ValueError("extend_batch: node %d's block holds %d rows, "
+                             "its children %d" % (b, R, rows_sum))
+    bad = np.empty(B, np.int32)
+    L.gc_extend_batch(B, _d(dims), _d(ptrs), _d(coff), _d(cdims), _d(cptrs),
+                      int(gap_code), _d(bad), n_threads())
+    if bad.any():
+        raise ValueError("extend_batch: node %d's child maps more columns "
+                         "than its rows hold" % int(np.flatnonzero(bad)[0]))

@@ -19,6 +19,7 @@
 // identical results.
 
 #include <algorithm>
+#include <atomic>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
@@ -1231,10 +1232,52 @@ int32_t gc_align_node(int32_t n1, int32_t n2, int32_t dim,
 //   gc_merge_node_finish(n, E, ...) packs them into the caller's [n, E]
 // Both calls MUST run on the same OS thread with no interleaved
 // begin-call (the Python wrapper invokes them back to back).
-static thread_local std::vector<int32_t> mn_eto, mn_efrom, mn_rto,
-                                         mn_rfrom, mn_runits;
-static thread_local std::vector<float> mn_ecost;
-static thread_local int32_t mn_ne = 0, mn_nr = 0;
+namespace {
+// One merged node's edges (the body of gc_merge_node_begin, also run by
+// gc_merge_batch_begin): inverse mappings, then merge_edges_impl into the
+// growing vectors; returns the padded width E (the largest row).
+struct NodeEdges {
+  std::vector<int32_t> eto, efrom, rto, rfrom, runits;
+  std::vector<float> ecost;
+  int32_t ne = 0, nr = 0;
+};
+
+int32_t node_edges(NodeEdges& s, int32_t n_nodes, const int32_t* m1,
+                   const int32_t* m2, const uint8_t* matched,
+                   int32_t g1n, int32_t g1E, const int32_t* idx1,
+                   const float* cost1, const uint8_t* isrep1,
+                   const int32_t* units1,
+                   int32_t g2n, int32_t g2E, const int32_t* idx2,
+                   const float* cost2, const uint8_t* isrep2,
+                   const int32_t* units2,
+                   float up1, float up2, int32_t with_penalty) {
+  std::vector<int32_t> inv1((size_t)g1n, 0), inv2((size_t)g2n, 0);
+  for (int32_t i = 0; i < n_nodes; ++i) {
+    if (m1[i] != -1) inv1[m1[i]] = i;
+    if (m2[i] != -1) inv2[m2[i]] = i;
+  }
+  size_t cap = (size_t)n_nodes * 4 + (size_t)g1n * g1E
+             + (size_t)g2n * g2E + 16;
+  if (s.eto.size() < cap) {
+    s.eto.resize(cap); s.efrom.resize(cap); s.ecost.resize(cap);
+    s.rto.resize(cap); s.rfrom.resize(cap); s.runits.resize(cap);
+  }
+  merge_edges_impl(n_nodes, m1, m2, matched,
+                   g1n, g1E, idx1, cost1, isrep1, units1, inv1.data(),
+                   g2n, g2E, idx2, cost2, isrep2, units2, inv2.data(),
+                   up1, up2, with_penalty,
+                   s.eto.data(), s.efrom.data(), s.ecost.data(), &s.ne,
+                   s.rto.data(), s.rfrom.data(), s.runits.data(), &s.nr);
+  std::vector<int32_t> cnt((size_t)n_nodes, 0);
+  for (int32_t k = 0; k < s.ne; ++k) ++cnt[s.eto[k]];
+  for (int32_t k = 0; k < s.nr; ++k) ++cnt[s.rto[k]];
+  int32_t E = 1;
+  for (int32_t i = 0; i < n_nodes; ++i) E = std::max(E, cnt[i]);
+  return E;
+}
+}  // namespace
+
+static thread_local NodeEdges mn_staged;
 
 int32_t gc_merge_node_begin(
     int32_t n_nodes, const int32_t* m1, const int32_t* m2,
@@ -1244,36 +1287,16 @@ int32_t gc_merge_node_begin(
     int32_t g2n, int32_t g2E, const int32_t* idx2, const float* cost2,
     const uint8_t* isrep2, const int32_t* units2,
     float up1, float up2, int32_t with_penalty) {
-  std::vector<int32_t> inv1((size_t)g1n, 0), inv2((size_t)g2n, 0);
-  for (int32_t i = 0; i < n_nodes; ++i) {
-    if (m1[i] != -1) inv1[m1[i]] = i;
-    if (m2[i] != -1) inv2[m2[i]] = i;
-  }
-  size_t cap = (size_t)n_nodes * 4 + (size_t)g1n * g1E
-             + (size_t)g2n * g2E + 16;
-  if (mn_eto.size() < cap) {
-    mn_eto.resize(cap); mn_efrom.resize(cap); mn_ecost.resize(cap);
-    mn_rto.resize(cap); mn_rfrom.resize(cap); mn_runits.resize(cap);
-  }
-  merge_edges_impl(n_nodes, m1, m2, matched,
-                   g1n, g1E, idx1, cost1, isrep1, units1, inv1.data(),
-                   g2n, g2E, idx2, cost2, isrep2, units2, inv2.data(),
-                   up1, up2, with_penalty,
-                   mn_eto.data(), mn_efrom.data(), mn_ecost.data(), &mn_ne,
-                   mn_rto.data(), mn_rfrom.data(), mn_runits.data(),
-                   &mn_nr);
-  std::vector<int32_t> cnt((size_t)n_nodes, 0);
-  for (int32_t k = 0; k < mn_ne; ++k) ++cnt[mn_eto[k]];
-  for (int32_t k = 0; k < mn_nr; ++k) ++cnt[mn_rto[k]];
-  int32_t E = 1;
-  for (int32_t i = 0; i < n_nodes; ++i) E = std::max(E, cnt[i]);
-  return E;
+  return node_edges(mn_staged, n_nodes, m1, m2, matched, g1n, g1E, idx1,
+                    cost1, isrep1, units1, g2n, g2E, idx2, cost2, isrep2,
+                    units2, up1, up2, with_penalty);
 }
 
 void gc_merge_node_finish(int32_t n, int32_t E, int32_t* idx, float* cost,
                           uint8_t* isrep, int32_t* units) {
-  gc_pad_edges(n, E, mn_ne, mn_eto.data(), mn_efrom.data(), mn_ecost.data(),
-               mn_nr, mn_rto.data(), mn_rfrom.data(), mn_runits.data(),
+  const NodeEdges& s = mn_staged;
+  gc_pad_edges(n, E, s.ne, s.eto.data(), s.efrom.data(), s.ecost.data(),
+               s.nr, s.rto.data(), s.rfrom.data(), s.runits.data(),
                idx, cost, isrep, units);
 }
 
@@ -1760,6 +1783,511 @@ void gc_pack_planes(int32_t B, int32_t dim, int32_t n1max, int32_t n2max,
     for (int32_t t = 0; t < n_threads; ++t) ts.emplace_back(work, t);
     for (auto& t : ts) t.join();
   }
+}
+
+// ---------------------------------------------------------------------
+// A level's host stage in batches (engine/level_driver.py align_tasks):
+// the cleaning of every graph, the host alignment of every pair, the merge
+// of every node and its row block, each in one call that spreads the items
+// over std::threads and holds no Python lock.  Items are handed out from a
+// shared counter: within a level, node sizes differ by 100x.  Where an
+// output's size is known only after the work, the call has two phases:
+// gc_*_begin does the work into a staged batch and writes each item's
+// sizes, the caller allocates arrays of exactly those sizes, gc_*_finish
+// copies into them; gc_batch_free frees the staged batch (after finish, or
+// in its place on an error).  Each item's work is the single-item body
+// that the per-node path runs, so the results are the same bit for bit.
+extern "C++" {
+namespace {
+struct Staged {
+  virtual ~Staged() {}
+};
+
+// f(k) for k in [0, n) on up to n_threads threads (the calling thread
+// one of them); false when an item threw (bad_alloc), which is then
+// reported instead of ending the process.
+template <typename F>
+bool for_each_item(int32_t n, int32_t n_threads, F&& f) {
+  std::atomic<int32_t> next{0};
+  std::atomic<bool> ok{true};
+  auto work = [&]() {
+    for (int32_t k; (k = next.fetch_add(1)) < n;) {
+      try {
+        f(k);
+      } catch (...) {
+        ok = false;
+      }
+    }
+  };
+  n_threads = std::max(1, std::min(n_threads, n));
+  std::vector<std::thread> ts;
+  for (int32_t t = 1; t < n_threads; ++t) ts.emplace_back(work);
+  work();
+  for (auto& t : ts) t.join();
+  return ok;
+}
+
+// The kinds of batch call, in the order gc_batch_probe reports them.
+enum BatchKind {
+  kCleanBegin, kCleanFinish, kAlign, kMergeBegin, kMergeFinish, kExtend,
+  kBatchKinds
+};
+
+// A per-thread work constant in place of every call's own (0: each
+// call's own), and the most threads each kind of call ran on since the
+// last gc_batch_probe.  Set and read by the calling thread only.
+int64_t g_grain = 0;
+int32_t g_used[kBatchKinds] = {};
+
+// The threads for a batch of ``items`` items and ``work`` units: at most
+// one for each ``per_thread`` units and one an item, at least one.  A
+// thread's start and join cost about 0.2 ms on an 8-core host, so each
+// constant below is about 2 ms of its call's work a thread; a level of
+// small nodes then runs on the calling thread alone.
+int32_t threads_for(BatchKind kind, int32_t items, int64_t work,
+                    int64_t per_thread, int32_t n_threads) {
+  if (g_grain > 0) per_thread = g_grain;
+  const int32_t t = (int32_t)std::max<int64_t>(
+      1, std::min<int64_t>({n_threads, items, work / per_thread}));
+  g_used[kind] = std::max(g_used[kind], t);
+  return t;
+}
+
+// A thread's scratch of at least n elements, grown only (a capacity
+// buffer touched once a thread, not once an item); an item's staged
+// output then keeps only the exact entries.
+template <typename T>
+T* scratch(std::vector<T>& v, size_t n) {
+  if (v.size() < n) v.resize(n);
+  return v.data();
+}
+
+template <typename T>
+inline const T* at(const int64_t* ptrs, int64_t k) {
+  return (const T*)(intptr_t)ptrs[k];
+}
+
+// --- cleaning (graph/graph.py clean_graph) ---------------------------
+struct CleanItem {
+  int32_t n = 0, dim = 0;
+  const double* sites = nullptr;
+  std::vector<int32_t> mapping, eto, efrom, rto, rfrom, runits;
+  std::vector<float> ecost;
+  int32_t ne = 0, nr = 0;
+};
+struct CleanBatch : Staged {
+  std::vector<CleanItem> items;
+};
+
+// The linear-chain fast path of clean_graph: one slot a row, no repeat
+// slot, row i's predecessor i - 1, every cost after row 0 finite.
+bool linear_chain(int32_t n, int32_t E, const int32_t* idx, const float* cost,
+                  const uint8_t* isrep) {
+  if (E != 1) return false;
+  for (int32_t i = 0; i < n; ++i)
+    if (isrep[i] || idx[i] != i - 1) return false;
+  for (int32_t i = 1; i < n; ++i)
+    if (!std::isfinite(cost[i])) return false;
+  return true;
+}
+}  // namespace
+}  // extern "C++"
+
+// Graph b has dims[3b..] = (n, E, dim) and ptrs[5b..] = (idx [n, E]
+// int32, cost float32, isrep uint8, units int32, sites [n, dim] float64).
+// Writes sizes[3b..] = (status, new_dim, E'): status 1 for a linear chain
+// (cleaned to itself: the caller keeps the graph), 0 for a cleaned graph
+// of new_dim nodes and padded width E', -1 when the start/end
+// reachability invariant fails.  Returns the staged batch, or null when
+// an item could not allocate.
+void* gc_clean_batch_begin(int32_t B, const int32_t* dims,
+                           const int64_t* ptrs, float repeat_ext,
+                           int32_t* sizes, int32_t n_threads) {
+  CleanBatch* cb = new CleanBatch();
+  cb->items.resize(B);
+  int64_t work = 0;
+  for (int32_t b = 0; b < B; ++b)
+    work += (int64_t)dims[3 * b] * dims[3 * b + 1];
+  n_threads = threads_for(kCleanBegin, B, work, 1 << 19, n_threads);
+  bool ok = for_each_item(B, n_threads, [&](int32_t b) {
+    const int32_t n = dims[3 * b], E = dims[3 * b + 1];
+    const int32_t* idx = at<int32_t>(ptrs, 5 * b);
+    const float* cost = at<float>(ptrs, 5 * b + 1);
+    const uint8_t* isrep = at<uint8_t>(ptrs, 5 * b + 2);
+    const int32_t* units = at<int32_t>(ptrs, 5 * b + 3);
+    CleanItem& it = cb->items[b];
+    if (linear_chain(n, E, idx, cost, isrep)) {
+      sizes[3 * b] = 1;
+      sizes[3 * b + 1] = n;
+      sizes[3 * b + 2] = 1;
+      return;
+    }
+    it.n = n;
+    it.dim = dims[3 * b + 2];
+    it.sites = at<double>(ptrs, 5 * b + 4);
+    const size_t cap = (size_t)n * E;
+    static thread_local std::vector<int32_t> eto, efrom, rto, rfrom, runits;
+    static thread_local std::vector<float> ecost;
+    it.mapping.resize(n);
+    const int32_t new_dim = gc_clean_graph(
+        n, E, idx, cost, isrep, units, repeat_ext, it.mapping.data(),
+        scratch(eto, cap), scratch(efrom, cap), scratch(ecost, cap), &it.ne,
+        scratch(rto, cap), scratch(rfrom, cap), scratch(runits, cap), &it.nr);
+    sizes[3 * b] = new_dim < 0 ? -1 : 0;
+    sizes[3 * b + 1] = new_dim;
+    if (new_dim < 0) {
+      sizes[3 * b + 2] = 0;
+      return;
+    }
+    it.eto.assign(eto.begin(), eto.begin() + it.ne);
+    it.efrom.assign(efrom.begin(), efrom.begin() + it.ne);
+    it.ecost.assign(ecost.begin(), ecost.begin() + it.ne);
+    it.rto.assign(rto.begin(), rto.begin() + it.nr);
+    it.rfrom.assign(rfrom.begin(), rfrom.begin() + it.nr);
+    it.runits.assign(runits.begin(), runits.begin() + it.nr);
+    sizes[3 * b + 2] = gc_edge_span(new_dim, it.ne, it.eto.data(), it.nr,
+                                    it.rto.data());
+  });
+  if (!ok) {
+    delete cb;
+    return nullptr;
+  }
+  return cb;
+}
+
+// Fills each graph of status 0: out[6b..] = (sites [new_dim, dim] float64:
+// the kept rows in their order, outmapping [new_dim] int64: their old
+// indices, then idx, cost, isrep, units [new_dim, E'] as gc_pad_edges
+// packs them).  Returns 0, or -1 when an item could not allocate.
+int32_t gc_clean_batch_finish(void* staged, const int32_t* sizes,
+                              const int64_t* out, int32_t n_threads) {
+  CleanBatch* cb = (CleanBatch*)staged;
+  const int32_t B = (int32_t)cb->items.size();
+  int64_t work = 0;
+  for (int32_t b = 0; b < B; ++b)
+    if (sizes[3 * b] == 0)
+      work += (int64_t)sizes[3 * b + 1]
+              * (cb->items[b].dim + sizes[3 * b + 2]);
+  n_threads = threads_for(kCleanFinish, B, work, 1 << 18, n_threads);
+  bool ok = for_each_item(B, n_threads, [&](int32_t b) {
+    if (sizes[3 * b] != 0) return;
+    const CleanItem& it = cb->items[b];
+    const int32_t nd = sizes[3 * b + 1], E = sizes[3 * b + 2];
+    double* sites = (double*)(intptr_t)out[6 * b];
+    int64_t* outmap = (int64_t*)(intptr_t)out[6 * b + 1];
+    for (int32_t to = 0; to < it.n; ++to) {
+      const int32_t y = it.mapping[to];
+      if (y == -1) continue;
+      memcpy(sites + (int64_t)y * it.dim, it.sites + (int64_t)to * it.dim,
+             it.dim * sizeof(double));
+      outmap[y] = to;
+    }
+    gc_pad_edges(nd, E, it.ne, it.eto.data(), it.efrom.data(),
+                 it.ecost.data(), it.nr, it.rto.data(), it.rfrom.data(),
+                 it.runits.data(), (int32_t*)(intptr_t)out[6 * b + 2],
+                 (float*)(intptr_t)out[6 * b + 3],
+                 (uint8_t*)(intptr_t)out[6 * b + 4],
+                 (int32_t*)(intptr_t)out[6 * b + 5]);
+  });
+  return ok ? 0 : -1;
+}
+
+void gc_batch_free(void* staged) { delete (Staged*)staged; }
+
+// Writes the most threads each kind of batch call ran on since the last
+// probe into used[6] (clean begin, clean finish, align, merge begin, merge
+// finish, extend) and starts a new count; from now on every call gives a
+// thread ``grain`` units of work in place of its own constant (0: its
+// own).  The tests lower the grain so that small inputs run the threaded
+// paths.
+void gc_batch_probe(int64_t grain, int32_t* used) {
+  for (int32_t k = 0; k < kBatchKinds; ++k) {
+    used[k] = g_used[k];
+    g_used[k] = 0;
+  }
+  g_grain = grain;
+}
+
+// --- host alignments (native.align_node_native) ----------------------
+namespace {
+struct AlignBatch : Staged {
+  std::vector<std::vector<int32_t>> map1, map2;
+};
+}  // namespace
+
+// Pair b has dims[5b..] = (n1, n2, E1, E2, dim), ptrs[10b..] = (idx1
+// [n1, E1] int32, cost1 float32, isrep1 uint8, idx2, cost2, isrep2,
+// sites1 [n1, dim] float64, sites2, M [dim, dim] float64, pi [dim]
+// float64) and scal[8b..] = (match_init, gap_extend, gap_init, start_gap,
+// start_init, end_match, end_gap, end_skip).  The sites, M and pi are
+// rounded to float32 as numpy's astype does, then gc_align_node runs.
+// Writes len[b] (the mapping's length; -1 where a graph has a repeat slot,
+// -2 where the backtrack failed: the caller aligns those pairs its staged
+// way) and score[b].  Returns the staged batch, or null as above.
+void* gc_align_batch_begin(int32_t B, const int32_t* dims,
+                           const int64_t* ptrs, const float* scal,
+                           int32_t* len, float* score, int32_t n_threads) {
+  AlignBatch* ab = new AlignBatch();
+  ab->map1.resize(B);
+  ab->map2.resize(B);
+  int64_t work = 0;
+  for (int32_t b = 0; b < B; ++b)
+    work += (int64_t)dims[5 * b] * dims[5 * b + 1] * (dims[5 * b + 4] + 8);
+  n_threads = threads_for(kAlign, B, work, 1 << 22, n_threads);
+  bool ok = for_each_item(B, n_threads, [&](int32_t b) {
+    const int32_t* d = dims + 5 * b;
+    const int32_t n1 = d[0], n2 = d[1], e1 = d[2], e2 = d[3], dim = d[4];
+    const int64_t* p = ptrs + 10 * b;
+    const uint8_t* r1 = at<uint8_t>(p, 2);
+    const uint8_t* r2 = at<uint8_t>(p, 5);
+    bool rep = false;
+    for (int64_t q = 0; q < (int64_t)n1 * e1; ++q) rep |= r1[q] != 0;
+    for (int64_t q = 0; q < (int64_t)n2 * e2; ++q) rep |= r2[q] != 0;
+    if (rep) {
+      len[b] = -1;
+      return;
+    }
+    static thread_local std::vector<float> s1, s2, Mf, pif;
+    auto round = [](const double* src, int64_t count,
+                    std::vector<float>& dst) {
+      dst.resize(count);
+      for (int64_t q = 0; q < count; ++q) dst[q] = (float)src[q];
+    };
+    round(at<double>(p, 6), (int64_t)n1 * dim, s1);
+    round(at<double>(p, 7), (int64_t)n2 * dim, s2);
+    round(at<double>(p, 8), (int64_t)dim * dim, Mf);
+    round(at<double>(p, 9), dim, pif);
+    const float* c = scal + 8 * b;
+    static thread_local std::vector<int32_t> t1, t2;
+    const size_t cap = (size_t)n1 + n2 + 4;
+    float wend = 0.0f;
+    const int32_t n = gc_align_node(
+        n1, n2, dim, e1, e2, at<int32_t>(p, 0), at<float>(p, 1),
+        at<int32_t>(p, 3), at<float>(p, 4), s1.data(), s2.data(),
+        Mf.data(), pif.data(), c[0], c[1], c[2], c[3], c[4], c[5], c[6],
+        c[7], scratch(t1, cap), scratch(t2, cap), &wend);
+    len[b] = n < 0 ? -2 : n;
+    score[b] = wend;
+    if (n > 0) {
+      ab->map1[b].assign(t1.begin(), t1.begin() + n);
+      ab->map2[b].assign(t2.begin(), t2.begin() + n);
+    }
+  });
+  if (!ok) {
+    delete ab;
+    return nullptr;
+  }
+  return ab;
+}
+
+// Writes each aligned pair's mappings in walk order (the backtrack emits
+// them reversed) into map1 and map2, the pairs one after another in their
+// order, len[b] entries each.
+void gc_align_batch_finish(void* staged, const int32_t* len, int32_t* map1,
+                           int32_t* map2) {
+  AlignBatch* ab = (AlignBatch*)staged;
+  int64_t o = 0;
+  for (size_t b = 0; b < ab->map1.size(); ++b) {
+    if (len[b] < 0) continue;
+    std::reverse_copy(ab->map1[b].begin(), ab->map1[b].end(), map1 + o);
+    std::reverse_copy(ab->map2[b].begin(), ab->map2[b].end(), map2 + o);
+    o += len[b];
+  }
+}
+
+// --- merges (align/merge.py merge_graphs, native branch) -------------
+namespace {
+struct MergeItem {
+  int32_t n = 0, dim = 0;
+  std::vector<double> nodes;
+  std::vector<int32_t> m1, m2;
+  std::vector<uint8_t> matched;
+  NodeEdges edges;
+};
+struct MergeBatch : Staged {
+  std::vector<MergeItem> items;
+};
+
+// unclean_mapping (graph/graph.py): a cleaned graph's index through
+// outmap (null: the graph was its own cleaning); false on an index
+// outside either.
+bool unclean(const int32_t* m, int32_t nmap, const int64_t* outmap,
+             int32_t n_clean, int32_t n_graph, std::vector<int32_t>& out) {
+  out.resize(nmap);
+  for (int32_t j = 0; j < nmap; ++j) {
+    int64_t v = m[j];
+    if (v != -1) {
+      if (v < 0 || v >= n_clean) return false;
+      if (outmap) v = outmap[v];
+      if (v < 0 || v >= n_graph) return false;
+    }
+    out[j] = (int32_t)v;
+  }
+  return true;
+}
+}  // namespace
+
+// Node b merges g1 and g2 along the cleaned graphs' alignment: dims[8b..]
+// = (nmap, n1, E1, n2, E2, dim, n_clean1, n_clean2),
+// ptrs[16b..] = (map1 [nmap] int32, map2, outmap1 [n_clean1] int64 or 0,
+// outmap2, sites1 [n1, dim] float64, idx1 [n1, E1] int32, cost1 float32,
+// isrep1 uint8, units1 int32, sites2, idx2, cost2, isrep2, units2, P1
+// [dim, dim] float64, P2), ups[2b..] = (up1, up2).  Per node: the
+// mappings uncleaned, gc_unify's columns (mode 0, BLAS from gemv/ddot as
+// gc_unify takes them), node_edges' edges.  Writes sizes[3b..] = (status,
+// n, E): status 0, or -1 for an error in the mapping.  Returns the staged
+// batch, or null as above.
+void* gc_merge_batch_begin(int32_t B, const int32_t* dims,
+                           const int64_t* ptrs, const float* ups,
+                           void* gemv_fn, void* ddot_fn, int32_t blas64,
+                           int32_t* sizes, int32_t n_threads) {
+  MergeBatch* mb = new MergeBatch();
+  mb->items.resize(B);
+  int64_t work = 0;
+  for (int32_t b = 0; b < B; ++b) {
+    const int32_t* d = dims + 8 * b;
+    work += ((int64_t)d[1] + d[3]) * ((int64_t)d[5] * d[5] + d[2] + d[4]);
+  }
+  n_threads = threads_for(kMergeBegin, B, work, 1 << 21, n_threads);
+  bool ok = for_each_item(B, n_threads, [&](int32_t b) {
+    const int32_t* d = dims + 8 * b;
+    const int32_t nmap = d[0], n1 = d[1], e1 = d[2], n2 = d[3], e2 = d[4];
+    const int32_t dim = d[5];
+    const int64_t* p = ptrs + 16 * b;
+    MergeItem& it = mb->items[b];
+    std::vector<int32_t> map1, map2;
+    sizes[3 * b] = -1;
+    if (!unclean(at<int32_t>(p, 0), nmap, at<int64_t>(p, 2), d[6], n1,
+                 map1)
+        || !unclean(at<int32_t>(p, 1), nmap, at<int64_t>(p, 3), d[7], n2,
+                    map2))
+      return;
+    const size_t cap = (size_t)n1 + n2 + 2;
+    static thread_local std::vector<double> nodes;
+    static thread_local std::vector<int32_t> m1, m2;
+    static thread_local std::vector<uint8_t> matched;
+    static thread_local NodeEdges edges;
+    const int32_t n = gc_unify(
+        gemv_fn, ddot_fn, blas64, dim, 0, nmap, map1.data(), map2.data(),
+        at<double>(p, 4), at<double>(p, 9), at<double>(p, 14),
+        at<double>(p, 15), scratch(nodes, cap * dim), scratch(m1, cap),
+        scratch(m2, cap), scratch(matched, cap));
+    if (n < 0) return;
+    it.n = n;
+    it.dim = dim;
+    const int32_t E = node_edges(
+        edges, n, m1.data(), m2.data(), matched.data(), n1, e1,
+        at<int32_t>(p, 5), at<float>(p, 6), at<uint8_t>(p, 7),
+        at<int32_t>(p, 8), n2, e2, at<int32_t>(p, 10), at<float>(p, 11),
+        at<uint8_t>(p, 12), at<int32_t>(p, 13), ups[2 * b], ups[2 * b + 1],
+        1);
+    it.nodes.assign(nodes.begin(), nodes.begin() + (size_t)n * dim);
+    it.m1.assign(m1.begin(), m1.begin() + n);
+    it.m2.assign(m2.begin(), m2.begin() + n);
+    it.matched.assign(matched.begin(), matched.begin() + n);
+    NodeEdges& s = it.edges;
+    s.ne = edges.ne;
+    s.nr = edges.nr;
+    s.eto.assign(edges.eto.begin(), edges.eto.begin() + s.ne);
+    s.efrom.assign(edges.efrom.begin(), edges.efrom.begin() + s.ne);
+    s.ecost.assign(edges.ecost.begin(), edges.ecost.begin() + s.ne);
+    s.rto.assign(edges.rto.begin(), edges.rto.begin() + s.nr);
+    s.rfrom.assign(edges.rfrom.begin(), edges.rfrom.begin() + s.nr);
+    s.runits.assign(edges.runits.begin(), edges.runits.begin() + s.nr);
+    sizes[3 * b] = 0;
+    sizes[3 * b + 1] = n;
+    sizes[3 * b + 2] = E;
+  });
+  if (!ok) {
+    delete mb;
+    return nullptr;
+  }
+  return mb;
+}
+
+// Fills node b: out[8b..] = (sites [n, dim] float64 with rows 0 and n - 1
+// zero, m1 [n] int32, m2, matched [n] uint8, idx, cost, isrep, units
+// [n, E] as gc_pad_edges packs them).  Returns 0, or -1 as above.
+int32_t gc_merge_batch_finish(void* staged, const int32_t* sizes,
+                              const int64_t* out, int32_t n_threads) {
+  MergeBatch* mb = (MergeBatch*)staged;
+  const int32_t B = (int32_t)mb->items.size();
+  int64_t work = 0;
+  for (int32_t b = 0; b < B; ++b)
+    work += (int64_t)sizes[3 * b + 1] * (mb->items[b].dim + sizes[3 * b + 2]);
+  n_threads = threads_for(kMergeFinish, B, work, 1 << 18, n_threads);
+  bool ok = for_each_item(B, n_threads, [&](int32_t b) {
+    const MergeItem& it = mb->items[b];
+    const int32_t n = sizes[3 * b + 1], E = sizes[3 * b + 2];
+    const int64_t* o = out + 8 * b;
+    double* sites = (double*)(intptr_t)o[0];
+    memcpy(sites, it.nodes.data(), (size_t)n * it.dim * sizeof(double));
+    std::fill(sites, sites + it.dim, 0.0);
+    std::fill(sites + (int64_t)(n - 1) * it.dim, sites + (int64_t)n * it.dim,
+              0.0);
+    memcpy((void*)(intptr_t)o[1], it.m1.data(), n * sizeof(int32_t));
+    memcpy((void*)(intptr_t)o[2], it.m2.data(), n * sizeof(int32_t));
+    memcpy((void*)(intptr_t)o[3], it.matched.data(), n);
+    const NodeEdges& s = it.edges;
+    gc_pad_edges(n, E, s.ne, s.eto.data(), s.efrom.data(), s.ecost.data(),
+                 s.nr, s.rto.data(), s.rfrom.data(), s.runits.data(),
+                 (int32_t*)(intptr_t)o[4], (float*)(intptr_t)o[5],
+                 (uint8_t*)(intptr_t)o[6], (int32_t*)(intptr_t)o[7]);
+  });
+  return ok ? 0 : -1;
+}
+
+// --- row blocks (engine/progressive.py extend_children) --------------
+// Node b's block dest [C, R] int16 (dims[2b..] = (C, K): K children,
+// ptrs[b] = dest) takes its children's rows in turn: child j (the j-th
+// of the node's entries in cdims / cptrs, from coff[b]) has cdims[2c..] =
+// (rows, src_len) and cptrs[2c..] = (mapping [C + 2] int32, src
+// [src_len, rows] int16).  The child's i-th mapped column (mapping[1 + j]
+// != -1) takes row i of src, every other column the gap code.  Writes
+// bad[b] = 1 where a child maps more columns than src_len (numpy's shape
+// error), else 0.
+void gc_extend_batch(int32_t B, const int32_t* dims, const int64_t* ptrs,
+                     const int32_t* coff, const int32_t* cdims,
+                     const int64_t* cptrs, int16_t gap, int32_t* bad,
+                     int32_t n_threads) {
+  int64_t work = 0;
+  for (int32_t b = 0; b < B; ++b) {
+    int32_t R = 0;
+    for (int32_t j = 0; j < dims[2 * b + 1]; ++j)
+      R += cdims[2 * (coff[b] + j)];
+    work += (int64_t)dims[2 * b] * R;
+  }
+  n_threads = threads_for(kExtend, B, work, 1 << 20, n_threads);
+  for_each_item(B, n_threads, [&](int32_t b) {
+    const int32_t C = dims[2 * b], K = dims[2 * b + 1];
+    int16_t* dest = (int16_t*)(intptr_t)ptrs[b];
+    int32_t R = 0;
+    for (int32_t j = 0; j < K; ++j) R += cdims[2 * (coff[b] + j)];
+    bad[b] = 0;
+    int32_t r0 = 0;
+    for (int32_t j = 0; j < K; ++j) {
+      const int32_t c = coff[b] + j;
+      const int32_t rows = cdims[2 * c], src_len = cdims[2 * c + 1];
+      const int32_t* mapping = at<int32_t>(cptrs, 2 * c);
+      const int16_t* src = at<int16_t>(cptrs, 2 * c + 1);
+      if (rows == 0) continue;
+      int32_t i = 0;
+      for (int32_t col = 0; col < C; ++col) {
+        int16_t* d = dest + (int64_t)col * R + r0;
+        if (mapping[col + 1] != -1) {
+          if (i >= src_len) {
+            bad[b] = 1;
+            return;
+          }
+          memcpy(d, src + (int64_t)i * rows, rows * sizeof(int16_t));
+          ++i;
+        } else {
+          std::fill(d, d + rows, gap);
+        }
+      }
+      r0 += rows;
+    }
+  });
 }
 
 }  // extern "C"

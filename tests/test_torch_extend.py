@@ -324,16 +324,18 @@ def _cli(args, out, timeout):
 
 
 def test_timings_report_extend(tmp_path):
-    """``--timings`` on a fam6 ``-r`` run names ``extend``, once a merged
-    node (the passes' and the root search's, as ``merge``), beside
-    ``root_score``; the output is the golden's."""
+    """``--timings`` on a fam6 ``-r`` run names ``extend``, once a batch
+    of merged nodes (the passes' levels and the root search's waves, as
+    ``merge`` and ``clean``), beside ``root_score``; the output is the
+    golden's."""
     err, out = _cli(["--timings", "--fasta", "-r", FIX + "/fam6.fasta"],
                     str(tmp_path / "r6"), 300)
     head, _, report = err.partition("timings (wall seconds")
     calls = {ln.split()[0]: int(ln.rsplit(",", 1)[1].split()[0])
              for ln in report.splitlines()[1:]
              if ln.startswith("  ") and "calls)" in ln}
-    assert calls["extend"] == calls["merge"] >= 3 * (6 - 2) + 2 * 6 - 3
+    # the first pass's 3 levels, then the root search's waves and roots
+    assert calls["extend"] == calls["merge"] == calls["clean"] >= 3 + 2
     assert "root_score" in calls
     with open(os.path.join(G, "r_fam6.fasta")) as f:
         assert out == f.read()
