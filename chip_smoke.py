@@ -25,9 +25,9 @@ timed (with ``--parent``, the parent tree's run of it beside).  Phase
 ``walls`` also runs ``--engine auto`` (golden; the levels it sent to the
 card) and ``--engine device`` (whether fam500 equals native, reported);
 ``rates`` prints the calibration and the rates engine_policy.py holds.
-Phase ``threads`` runs fam500 ``-i 0`` and ``-r -i 0`` on both tiers at
-``PROGRAPHMSA_THREADS=1`` beside ``walls``' and ``reroot``'s runs at the
-default pool, every output against its golden, with each wall and the
+Phase ``threads`` runs fam500 ``-i 0`` on both tiers and ``-r -i 0`` on
+the card tier at ``PROGRAPHMSA_THREADS=1`` beside ``walls``' and
+``reroot``'s runs at the default pool, every output against its golden, with each wall and the
 level's host stage (``merge``, ``extend``, ``clean``, ``dp_fused``: native
 batches timed on the scheduler's thread).
 Phase ``start`` holds ``walls``' fresh
@@ -41,7 +41,15 @@ launches of D1 (two re-trees of four blocks of pairs each), and the same
 under ``--engine native --device cpu`` (the host tier's native pair
 statistics) against the same golden; it prints the peak host RSS and
 torch's peak card memory on a line of its own (with ``--parent``, the
-parent tree's card run beside them).  Phase ``mesh`` (phase_mesh) holds the
+parent tree's card run beside them).  Phase ``fam2000_default`` does the
+same at 2,000 sequences (32 launches of D1) against its golden, with each
+tier's ``distances``, ``nj``, ``tree_wait``, ``dp_device`` and
+``dp_fused`` and the card tier's ``torch_fb_*`` counts, and fails on any
+pair past every launch (``torch_fb_size``); it never runs the parent.
+Phase ``wide_pair`` holds K1, K2 and K3 on a pair with a side of 5,800
+nodes (either order; rings in global memory) against their plain
+versions, and the whole batch against the host's ``align_graphs``.
+Phase ``mesh`` (phase_mesh) holds the
 scale-out on the one card: the split programs and the level and
 root-search batches over 1, 2 and 4 shards of cuda:0 against the unsplit
 work, c2_fam100 through the CLI over 4 shards (its launches are the
@@ -92,7 +100,8 @@ form's reckoning (int32 counts, PAIR_COL_OPS_OLD a pair-column).
 
 also times the D1 of the tree checked out at DIR (pair_stats_time.py, in a
 process of its own) before and after this tree's, on the same alignments,
-and runs phase fam1000_default on that tree before and after this one's.
+and runs phase fam1000_default on that tree before and after this one's
+(phase fam2000_default runs this tree only).
 """
 
 from __future__ import annotations
@@ -602,6 +611,53 @@ def phase_fill_chase(dev):
         vs_native="mappings+score+n_tr identical")
 
 
+def wide_pairs():
+    """A merged-like pair with a side over 4,096 nodes, in both orders:
+    heavy graphs (checks.heavy) of 5,800 and 900 nodes with offsets up to
+    120 and 100, so the rings of 222 diagonals live in global memory
+    (plan_fill's smem_rings False), as at the top of a 2,000-sequence tree
+    (its largest pair, 865 x 5,767 nodes)."""
+    m = checks.model(0.4)
+    big = checks.heavy(5800, [2, 3, 5, 60, 120], 21)
+    small = checks.heavy(900, [2, 4, 100], 22)
+    return [(big, small, m), (small, big, m)]
+
+
+def phase_wide_pair(dev):
+    """K1, K2 and K3 on each wide pair against their plain versions on the
+    same launch (K1 and K2 under every layout; K3 under the launch's own
+    plan, that plan with the rings in global memory, and one block a
+    pair), and the pair through the whole batch (X1 and the harvest)
+    against the host's align_graphs: mappings, score bits and
+    n_tr_indels.  The 5,800-row order's own plan keeps its rings in global
+    memory."""
+    from prographmsa_tpu_torch.engine.progressive import align_graphs
+    t1 = time.perf_counter()
+    shapes = []
+    for g1, g2, m in wide_pairs():
+        sc = checks.DynProgScores(g1, g2, m, checks.OPTS)
+        items = [(g1, g2, m, sc)]
+        _, bt = pack(items, dev)
+        n1max = bt.g1T.shape[2]
+        if n1max > 4096 and bt.plan.smem_rings:
+            raise AssertionError("wide pair: plan %s for %d x %d nodes"
+                                 % (bt.plan, g1.size, g2.size))
+        Sd = s_check(bt)
+        band = -(-n1max // bt.plan.blocks_per_pair)
+        fill_check(Sd, bt, [bt.plan, bt.plan._replace(
+            smem_rings=False, smem_bytes=2 * band * 4),
+            plan_fill(1, n1max, bt.Rmax, blocks_per_pair=1)])
+        res = gdp.align_pairs_device(items, dev)[0]
+        host = align_graphs(g1, g2, m, checks.OPTS, sc)[0]
+        if not checks.same_alignment(res, host):
+            raise AssertionError("wide pair %d x %d: the batch differs from "
+                                 "align_graphs" % (g1.size, g2.size))
+        shapes.append("%dx%d" % (g1.size, g2.size))
+    say("wide_pair", t1, pairs=",".join(shapes), rings="shared+global",
+        vs_plain="K1,K2,K3 bit-identical",
+        vs_host="mappings+score+n_tr identical")
+
+
 def run_port(argv, record=None):
     """Port CLI in-process; returns (stderr text, timings counters).
     ``record``: a list that receives every level batch's items."""
@@ -895,17 +951,20 @@ def phase_walls(tmp, runs):
 
 
 # phase ``threads``: (run of phase walls or reroot, its golden)
-THREADS = (("fam500_i0", "fam500_i0.fasta"),
-           ("r_fam500_i0", "fam500_r_i0.fasta"))
+# (cell, golden, the tiers that run it at one thread too): fam500 -r -i 0
+# at one thread on the host tier (48 s) left out to keep the script's time
+THREADS = (("fam500_i0", "fam500_i0.fasta", ("card", "native")),
+           ("r_fam500_i0", "fam500_r_i0.fasta", ("card",)))
 HOST_STAGE = ("merge", "extend", "clean", "dp_fused")
 
 
 def phase_threads(tmp, runs, smi):
     """The level's host stage at one thread beside the default pool:
-    fam500 -i 0 and -r -i 0 on both tiers (card: --engine torch --device
-    cuda; native: --engine native) at PROGRAPHMSA_THREADS=1, each a CLI
-    process, and the default pool's runs of phases walls and reroot (their
-    walls as those phases took them); every output held to its golden.
+    fam500 -i 0 on both tiers (card: --engine torch --device cuda; native:
+    --engine native) and -r -i 0 on the card tier at PROGRAPHMSA_THREADS=1,
+    each a CLI process, and the default pool's runs of phases walls and
+    reroot on both tiers (their walls as those phases took them); every
+    output held to its golden.
     Prints each wall and the phases merge, extend, clean and dp_fused
     (native batches timed on the scheduler's thread: wall time), with the
     card's name and power limit.  Fails on a wrong byte, never on a
@@ -913,7 +972,7 @@ def phase_threads(tmp, runs, smi):
     t0 = time.perf_counter()
     args_of = dict(WALLS + REROOT)
     env1 = dict(os.environ, PROGRAPHMSA_THREADS="1")
-    for name, golden in THREADS:
+    for name, golden, one_thread in THREADS:
         r = runs[name]
         for tier, extra, out, wall, err in (
                 ("card", ("--engine", "torch", "--device", "cuda"), r["out"],
@@ -921,12 +980,13 @@ def phase_threads(tmp, runs, smi):
                 ("native", ("--engine", "native"), r["ref"], r["ref_wall"],
                  r["ref_err"])):
             got = [("default", out, wall, err)]
-            o1 = os.path.join(tmp, "%s.%s.t1" % (name, tier))
-            w1, err1 = cli_wall(args_of[name], o1, extra + ("--timings",),
-                                env1)
-            note("== %s %s PROGRAPHMSA_THREADS=1 --timings" % (name, tier),
-                 err1)
-            got.append(("1", o1, w1, err1))
+            if tier in one_thread:
+                o1 = os.path.join(tmp, "%s.%s.t1" % (name, tier))
+                w1, err1 = cli_wall(args_of[name], o1,
+                                    extra + ("--timings",), env1)
+                note("== %s %s PROGRAPHMSA_THREADS=1 --timings"
+                     % (name, tier), err1)
+                got.append(("1", o1, w1, err1))
             for threads, o, w, e in got:
                 if not same_file(o, os.path.join(GOLD, golden)):
                     raise AssertionError("%s %s at %s threads differs from "
@@ -972,7 +1032,7 @@ class Interrupted(Exception):
     """Raised inside a run to stop it where an interruption would."""
 
 
-# A CLI run in a process of its own, for phase fam1000_default: its
+# A CLI run in a process of its own, for the default-run phases: its
 # launches, the peak RSS of its children (the first guide tree's process)
 # and torch's peak card memory, into the JSON file argv[1]; the CLI's
 # arguments follow.  torch is imported after the run, as the CLI imports
@@ -997,6 +1057,8 @@ sys.exit(rc)
 """
 FAM1000 = (1000, 300, 0)   # make_family(n, length, AA, seed), bench's fam1000
 FAM1000_GOLDEN = GOLD + "/fam1000_seed0.fasta.gz"   # prealigned_golden.py
+FAM2000 = (2000, 300, 0)
+FAM2000_GOLDEN = GOLD + "/fam2000_seed0.fasta.gz"   # ... --n 2000
 FAM1000_RETREES = 2        # the CLI's default -i 2
 RSS_PERIOD_S = 0.02
 
@@ -1011,8 +1073,8 @@ def peak_rss(proc, deadline):
     while proc.poll() is None:
         if time.perf_counter() > deadline:
             proc.kill()
-            raise AssertionError("fam1000_default: a run outlasted its "
-                                 "time limit")
+            raise AssertionError("a default run outlasted its time "
+                                 "limit")
         with contextlib.suppress(OSError, ValueError, IndexError):
             with open("/proc/%d/statm" % proc.pid) as f:
                 peak = max(peak or 0, int(f.read().split()[1]) * page)
@@ -1020,10 +1082,11 @@ def peak_rss(proc, deadline):
     return peak
 
 
-def memory_run(tree, fasta, out, extra=()):
+def memory_run(tree, fasta, out, extra=(), limit_s=900):
     """The default CLI run of ``fasta`` (with the flags ``extra``) by the
-    port at ``tree`` (this checkout or a parent's), through MEMORY_RUN:
-    (wall s, its record with the peak RSS sampled, stderr)."""
+    port at ``tree`` (this checkout or a parent's), through MEMORY_RUN,
+    killed after ``limit_s``: (wall s, its record with the peak RSS
+    sampled, stderr)."""
     rec = out + ".json"
     t1 = time.perf_counter()
     with open(out + ".stderr", "w+") as err:
@@ -1031,36 +1094,39 @@ def memory_run(tree, fasta, out, extra=()):
                               "--fasta", fasta, *extra, "--timings", "-o",
                               out], cwd=tree, stdout=subprocess.DEVNULL,
                              stderr=err)
-        rss = peak_rss(p, t1 + 900)
+        rss = peak_rss(p, t1 + limit_s)
         wall = time.perf_counter() - t1
         err.seek(0)
         text = err.read()
     if p.returncode != 0:
-        raise AssertionError("fam1000_default at %s exited %d: %s"
+        raise AssertionError("default run at %s exited %d: %s"
                              % (tree, p.returncode, text[-3000:]))
     with open(rec) as f:
         return wall, dict(json.load(f), host_rss_bytes=rss), text
 
 
-def phase_fam1000_default(tmp, parent=None):
+def phase_default_run(tmp, label, n, gold_path, parent=None):
     """The CLI's default run (``--fasta``: ``-i 2``, two re-trees from
-    prealigned distances, D1 on the card) on fam1000 as bench_torch.py
-    makes it, in a process of its own, against the JAX package's golden
-    (prealigned_golden.py) byte for byte: each re-tree's 499,500 pairs are
-    four calls of D1 (prealigned.CARD_BLOCK_PAIRS), so 8 launches of
-    ``pair_pack`` and of ``pair_stats``.  The same family under
-    ``--engine native --device cpu`` too (the host tier: the native pair
-    statistics, no launch), held to the same golden.  Prints the walls,
-    the ``distances`` phases, and on a line of its own the peak host RSS
-    and torch's peak card memory.  With ``parent``, the tree at that path
-    runs the card tier before and after this one (held to the golden
-    too)."""
+    prealigned distances, D1 on the card) on ``make_family(n, 300, AA,
+    0)`` as bench_torch.py makes fam1000, in a process of its own, against
+    the JAX package's golden (prealigned_golden.py --n N) byte for byte:
+    each re-tree's n (n - 1) / 2 pairs are calls of D1 of
+    prealigned.CARD_BLOCK_PAIRS pairs each, one launch of ``pair_pack``
+    and of ``pair_stats`` a call.  The same family under ``--engine native
+    --device cpu`` too (the host tier: native pair statistics and BioNJ,
+    no launch), held to the same golden.  Prints each tier's wall and its
+    ``distances`` (of which ``ml_newton``), ``nj``, ``tree_wait``,
+    ``dp_device`` and ``dp_fused`` phases, the card tier's ``torch_fb_*``
+    counts, and on a line of its own
+    the peak host RSS and torch's peak card memory.  With ``parent``, the
+    tree at that path runs the card tier before and after this one (held
+    to the golden too).  Returns the card tier's counters."""
     t0 = time.perf_counter()
-    n, length, seed = FAM1000
-    fasta = os.path.join(tmp, "fam1000_seed%d.fasta" % seed)
+    _, length, seed = FAM1000
+    fasta = os.path.join(tmp, "%s_seed%d.fasta" % (label, seed))
     mf = bench_torch.make_fixtures()
     mf.write_fasta(fasta, mf.make_family(n, length, bench_torch.AA, seed))
-    with gzip.open(FAM1000_GOLDEN, "rb") as f:
+    with gzip.open(gold_path, "rb") as f:
         gold = f.read()
     native_tier = ("--engine", "native", "--device", "cpu")
     trees = [("parent_before", parent, ())] if parent else []
@@ -1068,37 +1134,64 @@ def phase_fam1000_default(tmp, parent=None):
     trees += [("parent_after", parent, ())] if parent else []
     runs = {}
     for name, tree, extra in trees:
-        out = os.path.join(tmp, "fam1000_default_%s.fasta" % name)
+        out = os.path.join(tmp, "%s_%s.fasta" % (label, name))
         wall, rec, err = memory_run(tree, fasta, out, extra)
-        note("== fam1000_default %s --timings" % name, err)
+        note("== %s %s --timings" % (label, name), err)
         with open(out, "rb") as f:
             if f.read() != gold:
-                raise AssertionError("fam1000_default (%s) differs from %s"
-                                     % (name, FAM1000_GOLDEN))
+                raise AssertionError("%s (%s) differs from %s"
+                                     % (label, name, gold_path))
         runs[name] = dict(rec, wall_s=wall, err=err)
     port = runs["port"]
     calls = FAM1000_RETREES * -(-(n * (n - 1) // 2) // CARD_BLOCK_PAIRS)
     got = {k: port["launches"].get(k) for k in DIST_KERNELS}
     if got != {"nw": 0, "pair_pack": calls, "pair_stats": calls} or not all(
             port["launches"][k] > 0 for k in DP_KERNELS):
-        raise AssertionError("fam1000_default: launches %s, %d calls of D1 "
-                             "expected" % (port["launches"], calls))
+        raise AssertionError("%s: launches %s, %d calls of D1 expected"
+                             % (label, port["launches"], calls))
     nat = runs["native"]
     if any(nat["launches"].values()):
-        raise AssertionError("fam1000_default: --engine native launched %s"
-                             % nat["launches"])
+        raise AssertionError("%s: --engine native launched %s"
+                             % (label, nat["launches"]))
+    ctr = counters_of(port["err"])
+    fb = {k[len("torch_"):]: v for k, v in ctr.items()
+          if k.startswith("torch_fb_") or k.startswith("torch_pairs_")}
+    if ctr.get("torch_fb_size", 0):
+        raise AssertionError("%s: %d pairs past every launch (fb_size)"
+                             % (label, ctr["torch_fb_size"]))
     gb = lambda b: "%.3f" % (b / 1e9) if b is not None else "none"
-    say("fam1000_default", t0, golden="identical", wall_s="%.3f"
-        % port["wall_s"], distances_s=timing_of(port["err"], "distances"),
-        native_wall_s="%.3f" % nat["wall_s"],
-        native_distances_s=timing_of(nat["err"], "distances"),
-        launches=json.dumps(port["launches"], separators=(",", ":")))
-    print("fam1000_default memory: " + " ".join(
+    phases = ("distances", "ml_newton", "nj", "tree_wait", "dp_device",
+              "dp_fused")
+    tier = lambda r, pre: {pre + k + "_s": tree_phase(r["err"], k)
+                           for k in phases}
+    say(label, t0, golden="identical", wall_s="%.3f" % port["wall_s"],
+        **tier(port, ""), native_wall_s="%.3f" % nat["wall_s"],
+        **tier(nat, "native_"),
+        launches=json.dumps(port["launches"], separators=(",", ":")),
+        **fb)
+    print("%s memory: " % label + " ".join(
         "%s_host_rss_gb=%s %s_tree_rss_gb=%s %s_card_allocated_gb=%s "
         "%s_card_reserved_gb=%s %s_wall_s=%.3f" % (
             k, gb(r["host_rss_bytes"]), k, gb(r["tree_rss_bytes"]), k,
             gb(r["card_allocated_bytes"]), k, gb(r["card_reserved_bytes"]),
             k, r["wall_s"]) for k, r in runs.items()), flush=True)
+    return ctr
+
+
+def phase_fam1000_default(tmp, parent=None):
+    """phase_default_run at 1,000 sequences: 8 launches of D1 (two re-trees
+    of four blocks of pairs)."""
+    return phase_default_run(tmp, "fam1000_default", FAM1000[0],
+                             FAM1000_GOLDEN, parent)
+
+
+def phase_fam2000_default(tmp):
+    """phase_default_run at 2,000 sequences, HomFam's next size: 32
+    launches of D1 (two re-trees of 16 blocks), every pair on the card
+    (the top of the tree's pairs pass 4,096 nodes a side), BioNJ over the
+    native library's threads.  Run without a parent tree."""
+    return phase_default_run(tmp, "fam2000_default", FAM2000[0],
+                             FAM2000_GOLDEN)
 
 
 def interrupted_run(argv, at_pass):
@@ -2547,6 +2640,7 @@ def main():
     phase_build()
     phase_s(dev)
     phase_fill_chase(dev)
+    phase_wide_pair(dev)
     os.makedirs(OUT, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=OUT) as tmp:
         launches, launches_c2, largest = phase_fam100(dev, tmp)
@@ -2557,6 +2651,7 @@ def main():
         phase_threads(tmp, runs, smi)
         phase_start(runs)
         phase_fam1000_default(tmp, parent)
+        phase_fam2000_default(tmp)
         launches_resume = phase_resume(tmp, runs, smi)
         launches500, root, sum500, sum500_dev, levels500 = phase_levels(
             dev, tmp)

@@ -1,18 +1,19 @@
 #!/usr/bin/env python3
-"""The golden of the default run on a 1,000-sequence family, by the JAX
-package's CLI.
+"""The golden of the default run on a family of 1,000 (or ``--n``)
+sequences, by the JAX package's CLI.
 
-    JAX_PLATFORMS=cpu python3 prealigned_golden.py [--seed N] [--check]
-    python3 prealigned_golden.py --port [--as-limit-kb KB] [--seed N]
-        [-- CLI ARGS]
+    JAX_PLATFORMS=cpu python3 prealigned_golden.py [--n N] [--seed S]
+        [--check]
+    python3 prealigned_golden.py --port [--n N] [--as-limit-kb KB]
+        [--seed S] [-- CLI ARGS]
 
 Runs ``prographmsa_tpu.cli --fasta FAMILY -o OUT`` in this process on the
 CPU, with the CLI's defaults (``-i 2``: two re-trees from prealigned
-distances), on ``make_family(1000, 300, AA, seed)``, made as
-bench_torch.py makes fam1000, and writes
-``fixtures/golden/fam1000_seed<N>.fasta.gz`` (gzipped with mtime 0, as
-bench_goldens.py writes fam1000_i0's).  ``--check`` writes nothing and
-exits 1 where the output differs from that file.
+distances), on ``make_family(N, 300, AA, S)``, made as bench_torch.py
+makes fam1000, and writes ``fixtures/golden/fam<N>_seed<S>.fasta.gz``
+(gzipped with mtime 0, as bench_goldens.py writes fam1000_i0's).
+``--check`` writes nothing and exits 1 where the output differs from that
+file.
 
 The JAX package's host batch of pair statistics,
 ``prographmsa_tpu.distances.prealigned._pair_stats_batch_host``, builds
@@ -24,7 +25,7 @@ exact integers, so the values are the function's own; no file of the JAX
 package changes.  On the CPU the CLI's ``auto`` engine keeps the stage on
 the host, so the wrapper computes every pair; the script exits 1 if it
 was never called.  Prints the wall time, the peak RSS and the wrapper's
-calls.  Takes about 8 minutes and 4 GB.
+calls.  Takes about 8 minutes and 4 GB at 1,000 sequences.
 
 ``--port`` runs the port's CLI instead, ``python -m prographmsa_tpu_torch.cli
 --fasta FAMILY -o OUT`` and the CLI ARGS after ``--`` (default ``--engine
@@ -56,13 +57,13 @@ BLOCK_PAIR_COLUMNS = 1 << 24
 N_SEQS, ROOT_LENGTH = 1000, 300
 
 
-def golden_path(seed: int) -> str:
-    return os.path.join(bt.REPO, bt.GOLD, "fam1000_seed%d.fasta.gz" % seed)
+def golden_path(seed: int, n: int = N_SEQS) -> str:
+    return os.path.join(bt.REPO, bt.GOLD, "fam%d_seed%d.fasta.gz" % (n, seed))
 
 
-def write_input(path: str, seed: int):
+def write_input(path: str, seed: int, n: int = N_SEQS):
     mf = bt.make_fixtures()
-    mf.write_fasta(path, mf.make_family(N_SEQS, ROOT_LENGTH, bt.AA, seed))
+    mf.write_fasta(path, mf.make_family(n, ROOT_LENGTH, bt.AA, seed))
 
 
 def blocked(batch, calls):
@@ -77,7 +78,7 @@ def blocked(batch, calls):
     return run
 
 
-def run_port(seed: int, as_limit_kb: int, cli_args) -> int:
+def run_port(seed: int, as_limit_kb: int, cli_args, n: int = N_SEQS) -> int:
     """The port's CLI on the family in a capped process, against the
     golden."""
     def cap():
@@ -86,9 +87,9 @@ def run_port(seed: int, as_limit_kb: int, cli_args) -> int:
             resource.setrlimit(resource.RLIMIT_AS, (b, b))
 
     with tempfile.TemporaryDirectory(prefix="prealigned_golden_") as tmp:
-        fasta = os.path.join(tmp, "fam1000_seed%d.fasta" % seed)
+        fasta = os.path.join(tmp, "fam%d_seed%d.fasta" % (n, seed))
         out = os.path.join(tmp, "out.fasta")
-        write_input(fasta, seed)
+        write_input(fasta, seed, n)
         cmd = [sys.executable, "-m", "prographmsa_tpu_torch.cli", "--fasta",
                fasta, *cli_args, "-o", out]
         t0 = time.perf_counter()
@@ -105,15 +106,17 @@ def run_port(seed: int, as_limit_kb: int, cli_args) -> int:
             return 1
         with open(out, "rb") as f:
             text = f.read()
-    with gzip.open(golden_path(seed), "rb") as f:
+    with gzip.open(golden_path(seed, n), "rb") as f:
         same = f.read() == text
-    print("%s %s" % (golden_path(seed), "same" if same else "DIFFERS"))
+    print("%s %s" % (golden_path(seed, n), "same" if same else "DIFFERS"))
     return 0 if same else 1
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--n", type=int, default=N_SEQS,
+                    help="sequences in the family (default %(default)s)")
     ap.add_argument("--check", action="store_true",
                     help="compare with the golden in the repo, write none")
     ap.add_argument("--port", action="store_true",
@@ -125,7 +128,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.port:
         return run_port(args.seed, args.as_limit_kb, args.cli_args or [
-            "--engine", "native", "--device", "cpu", "--timings"])
+            "--engine", "native", "--device", "cpu", "--timings"], args.n)
 
     import jax
     jax.config.update("jax_platforms", "cpu")
@@ -136,9 +139,9 @@ def main(argv=None) -> int:
     prealigned._pair_stats_batch_host = blocked(
         prealigned._pair_stats_batch_host, calls)
     with tempfile.TemporaryDirectory(prefix="prealigned_golden_") as tmp:
-        fasta = os.path.join(tmp, "fam1000_seed%d.fasta" % args.seed)
+        fasta = os.path.join(tmp, "fam%d_seed%d.fasta" % (args.n, args.seed))
         out = os.path.join(tmp, "out.fasta")
-        write_input(fasta, args.seed)
+        write_input(fasta, args.seed, args.n)
         t0 = time.perf_counter()
         rc = cli.main(["--fasta", fasta, "-o", out])
         wall = time.perf_counter() - t0
@@ -151,7 +154,7 @@ def main(argv=None) -> int:
             return 1
         with open(out, "rb") as f:
             text = f.read()
-    gold = golden_path(args.seed)
+    gold = golden_path(args.seed, args.n)
     if args.check:
         with gzip.open(gold, "rb") as f:
             same = f.read() == text

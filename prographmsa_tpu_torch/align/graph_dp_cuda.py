@@ -7,14 +7,17 @@ with the same signature and return value: ``items`` is a list of
 (mapping1, mapping2, score, n_tr_indels), or None when the pair leaves the
 device path; the caller then aligns it on the host.  Every such pair is
 counted under its reason in ``fallback_stats()``:
-  fb_size     a side has more than MAX_N nodes;
+  fb_size     the pair alone does not fit one launch (``launch_fits``:
+              its planes exceed LAUNCH_BYTES, or the plan of K1, K2, K3 or
+              X1 cannot hold it);
   fb_offsets  more than MAX_OFF distinct predecessor offsets on a side;
   fb_reach    largest offset sum above 254 (ring of more than 256 diagonals);
   fb_rep      more than EV_CAP repeat events on the walk;
   fb_chase    the walk did not reach the origin (never seen: a guard).
 The reference counts chase failures as fb_rep; here they are apart.  Its
-TPU-only rules (the VMEM fb_size rule for large rings, fb_spread of its
-8-pair groups) have no counterpart here.
+TPU-only rules (the per-side cap of 4,096 nodes, its HBM plane budget; the
+VMEM fb_size rule for large rings; fb_spread of its 8-pair groups) have no
+counterpart here: the port's fb_size rule is its own kernels' limits.
 
 Pair preparation builds the slot tables with ``slots.capped_offset_costs``,
 so the slot order is the host PredIterator order.  ``pack_pairs`` turns the
@@ -29,6 +32,7 @@ sizes, lanes per cell from the graphs' in-degrees).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -37,11 +41,12 @@ import torch
 from .. import native, timings
 from .backtrack import mark_alternative_path
 from .chase_cuda import (META_FAIL_CHASE, META_FAIL_REP, META_LEN,
-                         META_SCORE, N_META, chase, row_width)
-from .fill_cuda import FillPlan, card_limits, fill, plan_fill
-from .scores_cuda import exact_s
-from .slots import (COST_INF, EV_CAP, MAX_N, MAX_OFF, TIERS,
-                    capped_offset_costs, shb)
+                         META_SCORE, N_META, chase, plan_chase, row_width)
+from .fill_cuda import (MAX_SLOTS, SMEM_BYTES, FillPlan, card_limits, fill,
+                        plan_fill)
+from .scores_cuda import exact_s, plan_s, plan_s_prep
+from .slots import (COST_INF, EV_CAP, MAX_OFF, TIERS, capped_offset_costs,
+                    shb)
 
 MAX_R = max(r for _, r in TIERS)          # ring diagonals per pair
 LAUNCH_BYTES = 1 << 30                    # S + code planes of one launch
@@ -71,9 +76,35 @@ class PairPrep(NamedTuple):
     shb: int              # decision-code slot-field width
 
 
+@functools.lru_cache(maxsize=1 << 12)
+def launch_fits(B: int, n1: int, n2: int, dim: int) -> bool:
+    """Whether one launch of B pairs of at most n1 x n2 nodes and dim
+    states is within the port's kernels: its S and code planes (8 bytes a
+    diagonal-major position, n1 x (n1 + n2) positions a pair) within
+    LAUNCH_BYTES, and the plans of K1, K2, K3 and X1 for its
+    padded shape accepted, each within the shared memory a block may ask
+    for.  K3's is taken at one block a pair, its widest band (its rings
+    stay in shared memory only where they fit), and X1's at MAX_SLOTS
+    slots (its tables' fixed size), so neither the slots nor the reach
+    enters."""
+    if B * (n1 + n2) * n1 * 8 > LAUNCH_BYTES:
+        return False
+    n1max = -(-n1 // 8) * 8               # as pack_pairs pads it
+    if (plan_fill(B, n1max, MAX_R, blocks_per_pair=1).smem_bytes
+            > SMEM_BYTES
+            or plan_chase(B, MAX_SLOTS, n1max, n2).smem_bytes > SMEM_BYTES):
+        return False
+    try:
+        plan_s_prep(B, dim, n2)
+        plan_s(B, dim, n1max, n2)
+    except ValueError:
+        return False
+    return True
+
+
 def prep_pair(idx, g1, g2, model, scores):
     """Slot tables for one pair, or the name of its fallback counter."""
-    if g1.size > MAX_N or g2.size > MAX_N:
+    if not launch_fits(1, g1.size, g2.size, g1.dim):
         return "fb_size"
     oc1 = capped_offset_costs(g1, scores, MAX_OFF)
     oc2 = capped_offset_costs(g2, scores, MAX_OFF)
@@ -211,15 +242,20 @@ def run_batch(bt: Batch):
 
 
 def _launches(preps):
-    """Cut the size-sorted pairs into launches whose padded S and code
-    planes (8 bytes per diagonal-major position) stay under LAUNCH_BYTES."""
+    """Cut the size-sorted pairs into launches that each fit the port's
+    kernels (``launch_fits``: the padded S and code planes within
+    LAUNCH_BYTES, every kernel's plan accepted).  ``prep_pair`` lets
+    through only pairs that fit alone, so every launch holds at least
+    one."""
     preps = sorted(preps, key=lambda p: -(p.g1.size + p.g2.size))
     out, cur, n1max, n2max = [], [], 0, 0
     for p in preps:
         a, b = max(n1max, p.g1.size), max(n2max, p.g2.size)
-        if cur and (len(cur) + 1) * (a + b) * a * 8 > LAUNCH_BYTES:
+        if cur and not launch_fits(len(cur) + 1, a, b, p.g1.dim):
             out.append(cur)
             cur, a, b = [], p.g1.size, p.g2.size
+        assert cur or launch_fits(1, a, b, p.g1.dim), \
+            "a %d x %d pair past every launch" % (a, b)
         cur.append(p)
         n1max, n2max = a, b
     if cur:

@@ -3,9 +3,12 @@
 The port's copy of what it needs from prographmsa_tpu/align/
 graph_dp_pallas.py: the finite float32 sentinels (decision codes and
 unreachable-cell values depend on their exact values; csrc/common.cuh holds
-the same bit patterns), the per-pair limits behind the ``fb_*`` fallback
-rules, the decision-code field width, and the offset-slot cost tables in
-host PredIterator order.
+the same bit patterns), the per-pair limits behind the ``fb_offsets`` and
+``fb_reach`` fallback rules (the code format K3 and X1 share with the JAX
+package), the decision-code field width, and the offset-slot cost tables
+in host PredIterator order.  A pair's size is bounded by the card's
+kernels and launches instead (graph_dp_cuda.launch_fits), not by a
+per-side node cap.
 """
 
 from __future__ import annotations
@@ -20,7 +23,6 @@ COST_INF = np.float32(1e37)      # finite "+inf" edge cost
 FLOOR = np.float32(-3e38)        # max-accumulator init (< any candidate)
 BIG = np.float32(3e38)           # min-accumulator init (> any |diff|)
 
-MAX_N = 4096                     # per-side node cap
 MAX_OFF = 64                     # offset-slot cap (largest tier's op)
 
 # tiers: (op = offset slots per side, R = ring diagonals); a pair needs the

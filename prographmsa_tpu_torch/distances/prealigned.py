@@ -26,7 +26,7 @@ from typing import Dict, List
 
 import numpy as np
 
-from .. import native
+from .. import native, timings
 from .ml import compute_distances_batch
 
 # Pair-columns a block of the host batch: its [pairs, L] temporaries take
@@ -169,8 +169,9 @@ def compute_prealigned_distances(spec, seqs: Dict[str, np.ndarray],
         return distances, variances
 
     def finish(sl, counts_b, gaps_b):
-        db, vb = compute_distances_batch(counts_b, gaps_b, seqlens[sl],
-                                         factory, options, spec.name)
+        with timings.phase("ml_newton"):
+            db, vb = compute_distances_batch(counts_b, gaps_b, seqlens[sl],
+                                             factory, options, spec.name)
         distances[pi[sl], pj[sl]] = distances[pj[sl], pi[sl]] = db
         variances[pi[sl], pj[sl]] = variances[pj[sl], pi[sl]] = vb
 

@@ -143,7 +143,10 @@ def lib():
         L.gc_redux_sum.restype = None
         L.gc_redux_sum.argtypes = [i32, i32, pf64, i32, pf64]
         L.gc_bionj.restype = i32
-        L.gc_bionj.argtypes = [i32, pf64, pf64, i32, pi32, pi32, pf64, pf64]
+        L.gc_bionj.argtypes = [i32, pf64, pf64, i32, pi32, pi32, pf64, pf64,
+                               i32]
+        L.gc_bionj_probe.restype = i32
+        L.gc_bionj_probe.argtypes = []
         i64 = ctypes.c_int64
         L.gc_pair_stats.restype = i32
         L.gc_pair_stats.argtypes = [i32, i32, pi32, pu8, i64, pi32, pi32, i32,
@@ -755,10 +758,12 @@ def pack_planes_native(arrays, dim, n1max, n2max, opmax, cap_value):
 def bionj_native(D, V, plan):
     """Native gc_bionj: BioNJ's joins on D and V ([n, n], n > 3) ->
     (joins [n - 3, 2] int32, branch lengths [n - 3, 2] float64, the 3 x 3
-    D left), bit-identical to tree/nj.py's loop; ``plan`` is the forced
-    (index1, index2) schedule.  None when unavailable or when a pair of
-    ``plan`` is no pair of the current rows (the numpy loop then meets
-    it)."""
+    D left), bit-identical to tree/nj.py's loop at any thread count; its
+    steps' O(n^2) parts run over up to ``n_threads()`` threads with the
+    GIL released (fewer for a small D; ``batch_probe``'s grain applies).
+    ``plan`` is the forced (index1, index2) schedule.  None when
+    unavailable or when a pair of ``plan`` is no pair of the current rows
+    (the numpy loop then meets it)."""
     L = lib()
     if L is None:
         return None
@@ -770,9 +775,15 @@ def bionj_native(D, V, plan):
     lens = np.empty((n - 3, 2), dtype=np.float64)
     d_end = np.empty((3, 3), dtype=np.float64)
     if L.gc_bionj(n, _d(Dc), _d(Vc), len(pl), _d(pl), _d(joins), _d(lens),
-                  _d(d_end)) < 0:
+                  _d(d_end), n_threads()) < 0:
         return None
     return joins, lens, d_end
+
+
+def bionj_probe() -> int:
+    """The most threads ``bionj_native`` ran on since the last probe, the
+    count then started anew."""
+    return int(lib().gc_bionj_probe())
 
 
 # ----------------------------------------------------------------------
@@ -800,9 +811,9 @@ BATCH_KINDS = ("clean_begin", "clean_finish", "align", "merge_begin",
 def batch_probe(grain=0):
     """The most threads each kind of batch call (BATCH_KINDS) ran on since
     the last probe, as a dict, the count then started anew; from now on
-    every batch gives a thread ``grain`` units of work in place of its own
-    constant (0: its own).  The tests lower the grain so that small inputs
-    run the threaded paths."""
+    every batch (and ``bionj_native``) gives a thread ``grain`` units of
+    work in place of its own constant (0: its own).  The tests lower the
+    grain so that small inputs run the threaded paths."""
     used = np.zeros(len(BATCH_KINDS), np.int32)
     lib().gc_batch_probe(int(grain), _d(used))
     return dict(zip(BATCH_KINDS, used.tolist()))

@@ -1467,94 +1467,153 @@ void gc_redux_sum(int32_t n, int32_t count, const double* v, int32_t a,
   redux_columns(v, n, count, n, a, out, 1);
 }
 
-// D and V are [n, n] row-major, n > 3, and are not written.  Step t joins
-// the current rows join[2t] < join[2t + 1] with branch lengths len[2t],
-// len[2t + 1]; the first n_plan steps take plan's pairs in place of the
-// Q matrix's minimum.  The 3 x 3 D left at the end goes to d_end.  Every
-// operation of the numpy loop is kept, in its order (the library is built
-// with -ffp-contract=off), so the joins and lengths are its bits: NJ breaks
-// ties on the last bit.  One thread.  Returns 0, or -1 for a plan's pair
-// that is no pair of the current rows.
-//
-// Layout: dt holds D's columns as rows (dt[c * n + r] = D[r, c], the
-// column sums and the column-major minimum run along them), compacted in
-// place when a row and column go, so that the current rows stay in the
-// numpy order the sums depend on.  V is only read and written by row and
-// column, so it keeps its places and `alive` maps a current row to one.
-int32_t gc_bionj(int32_t n, const double* D, const double* V,
-                 int32_t n_plan, const int32_t* plan, int32_t* join,
-                 double* len, double* d_end) {
-  const double MIN_DIST = 1e-4, MIN_VAR = 1e-5;
-  std::vector<double> dt((size_t)n * n), var(V, V + (size_t)n * n);
-  for (int32_t r = 0; r < n; ++r)
-    for (int32_t c = 0; c < n; ++c)
-      dt[(size_t)c * n + r] = at_least(D[(size_t)r * n + c], MIN_DIST);
-  for (size_t k = 0; k < var.size(); ++k) var[k] = at_least(var[k], MIN_VAR);
-  for (int32_t r = 0; r < n; ++r) {
-    dt[(size_t)r * n + r] = 0.0;
-    var[(size_t)r * n + r] = 0.0;
-  }
-  std::vector<int32_t> alive(n);
-  for (int32_t r = 0; r < n; ++r) alive[r] = r;
-  std::vector<double> sums(n), q(n), nd(n), nv(n);
-  int32_t prev = -1;
-  for (int32_t dim = n, step = 0; dim > 3; --dim, ++step) {
-    if (prev >= 0) {
-      // np.maximum and the zeroed diagonals: only the row and column the
-      // last step wrote are new.
-      const int32_t p = alive[prev];
-      for (int32_t j = 0; j < dim; ++j) {
-        double& a = dt[(size_t)prev * n + j];
-        double& b = dt[(size_t)j * n + prev];
-        a = at_least(a, MIN_DIST);
-        b = at_least(b, MIN_DIST);
-        double& u = var[(size_t)p * n + alive[j]];
-        double& w = var[(size_t)alive[j] * n + p];
-        u = at_least(u, MIN_VAR);
-        w = at_least(w, MIN_VAR);
-      }
-      dt[(size_t)prev * n + prev] = 0.0;
-      var[(size_t)p * n + p] = 0.0;
-    }
-    // eigen_colwise_sum: an odd column of an odd dim starts unaligned.
-    if (dim % 2 == 0) {
-      redux_columns(dt.data(), n, dim, dim, 0, sums.data(), 1);
-    } else {
-      redux_columns(dt.data(), 2 * (size_t)n, (dim + 1) / 2, dim, 0,
-                    sums.data(), 2);
-      redux_columns(dt.data() + n, 2 * (size_t)n, dim / 2, dim, 1,
-                    sums.data() + 1, 2);
-    }
+// A per-thread work constant in place of every call's own (0: each
+// call's own), for gc_bionj and the batch calls below (gc_batch_probe
+// sets it).  Set and read by the calling thread only.
+extern "C++" {
+namespace {
+int64_t g_grain = 0;
+int32_t g_bionj_used = 0;  // the most threads gc_bionj ran on (a probe)
 
-    int32_t i1, i2;
+// Cells of D a thread of gc_bionj's team takes a step at the least: a
+// part of a step costs the team some microseconds to hand over on an
+// 8-core host, so below 2 x this many cells (a D of 363 rows) the team
+// ends and the calling thread runs the last steps alone, and a call
+// whose D is smaller (fam100's) has no team.  2^14 and 2^18 measured
+// slower at 600 to 1,400 rows, and no grain faster at 400.
+constexpr int64_t kBionjGrain = 1 << 16;
+// Runs of columns a part of a step is cut into, for each thread of the
+// team: a thread that the host takes off its core mid-step then holds up
+// only the run it is in; the others take its runs left.
+constexpr int32_t kRunsPerThread = 4;
+
+// The first minimum of Q over a run of columns in column-major order, or
+// the first NaN there (nan set): what the serial scan of those columns
+// alone picks.  found is false when no value is below +inf.
+struct QBest {
+  double best = INFINITY;
+  int32_t r = 0, c = 0;
+  bool found = false, nan = false;
+};
+
+// One gc_bionj call: D's columns, V, and what each step hands on.  A step
+// is three parts of O(dim^2) work cut into runs of columns (the column
+// sums, the Q scan, the compaction; each run alike on any thread), and
+// between them the parts of O(dim) work, in the numpy loop's order.
+struct Bionj {
+  static constexpr double MIN_DIST = 1e-4, MIN_VAR = 1e-5;
+  int32_t n;
+  const int32_t n_plan;
+  const int32_t* plan;
+  int32_t* join;
+  double* len;
+  std::vector<double> dt, var, sums, nd, nv;
+  std::vector<int32_t> alive;
+  std::vector<std::vector<double>> q, saved;  // per thread, per run
+  std::vector<QBest> local;                    // per run of the Q scan
+  int32_t dim, step = 0, i1 = 0, i2 = 0, runs = 1;
+
+  Bionj(int32_t n_, const double* D, const double* V, int32_t n_plan_,
+        const int32_t* plan_, int32_t* join_, double* len_, int32_t threads)
+      : n(n_), n_plan(n_plan_), plan(plan_), join(join_), len(len_),
+        dt((size_t)n_ * n_), var(V, V + (size_t)n_ * n_), sums(n_), nd(n_),
+        nv(n_), alive(n_), q(threads, std::vector<double>(n_)),
+        saved(threads * kRunsPerThread, std::vector<double>(n_)),
+        local(threads * kRunsPerThread), dim(n_) {
+    for (int32_t r = 0; r < n; ++r)
+      for (int32_t c = 0; c < n; ++c)
+        dt[(size_t)c * n + r] = at_least(D[(size_t)r * n + c], MIN_DIST);
+    for (size_t k = 0; k < var.size(); ++k)
+      var[k] = at_least(var[k], MIN_VAR);
+    for (int32_t r = 0; r < n; ++r) {
+      dt[(size_t)r * n + r] = 0.0;
+      var[(size_t)r * n + r] = 0.0;
+      alive[r] = r;
+    }
+  }
+
+  // Run k's columns of `count` columns, for this step's number of runs.
+  int32_t lo(int32_t k, int32_t count) const {
+    return (int32_t)((int64_t)count * k / runs);
+  }
+  int32_t hi(int32_t k, int32_t count) const { return lo(k + 1, count); }
+
+  // Run k: the column sums of its columns (eigen_colwise_sum: an odd
+  // column of an odd dim starts unaligned), and a copy of the column past
+  // its run of the compaction, which the next run overwrites.
+  void sum_run(int32_t k) {
+    const int32_t a = lo(k, dim), b = hi(k, dim);
+    if (dim % 2 == 0) {
+      redux_columns(dt.data() + (size_t)a * n, n, b - a, dim, 0,
+                    sums.data() + a, 1);
+    } else {
+      const int32_t e = a + (a & 1), o = a + !(a & 1);
+      if (b > e)
+        redux_columns(dt.data() + (size_t)e * n, 2 * (size_t)n,
+                      (b - e + 1) / 2, dim, 0, sums.data() + e, 2);
+      if (b > o)
+        redux_columns(dt.data() + (size_t)o * n, 2 * (size_t)n,
+                      (b - o + 1) / 2, dim, 1, sums.data() + o, 2);
+    }
+    const int32_t c = hi(k, dim - 1);
+    if (c > lo(k, dim - 1))
+      std::memcpy(saved[k].data(), dt.data() + (size_t)c * n,
+                  sizeof(double) * dim);
+  }
+
+  // Run k, on thread t's scratch: Q = 0.5 D - 0.5 / (dim - 2) (s_c +
+  // s_r), diagonal +inf, over its columns: the serial scan's pick among
+  // them.
+  void q_run(int32_t k, int32_t t) {
+    const double coef = 0.5 / (dim - 2.0);
+    QBest& L = local[k];
+    L = QBest();
+    const double* qc = q[t].data();
+    for (int32_t c = lo(k, dim), e = hi(k, dim); c < e; ++c) {
+      double m;
+      if (q_column(dt.data() + (size_t)c * n, sums.data(), sums[c], coef,
+                   dim, c, q[t].data(), &m)) {
+        int32_t r = 0;
+        while (qc[r] == qc[r]) ++r;
+        L.r = r;
+        L.c = c;
+        L.nan = true;
+        return;
+      }
+      if (m < L.best) {
+        int32_t r = 0;
+        while (!(qc[r] == m)) ++r;
+        L.best = m;
+        L.r = r;
+        L.c = c;
+        L.found = true;
+      }
+    }
+  }
+
+  // The step's pair (the plan's, or the first minimum of Q in
+  // column-major order from the runs' picks in column order, a NaN
+  // winning as np.argmin's does), its branch lengths, lambda and the new
+  // node's row of D and of V.  False for a plan's pair that is no pair.
+  bool pick() {
     if (step < n_plan) {
       i1 = plan[2 * step];
       i2 = plan[2 * step + 1];
-      if (i1 < 0 || i2 <= i1 || i2 >= dim) return -1;
+      if (i1 < 0 || i2 <= i1 || i2 >= dim) return false;
     } else {
-      // Q = 0.5 D - 0.5 / (dim - 2) (s_c + s_r), diagonal +inf; the first
-      // minimum in column-major order, a NaN winning as np.argmin's does.
-      const double coef = 0.5 / (dim - 2.0);
       double best = INFINITY;
       int32_t br = 0, bc = 0;
-      for (int32_t c = 0; c < dim; ++c) {
-        const double* qc = q.data();
-        double m;
-        const bool nan = q_column(dt.data() + (size_t)c * n, sums.data(),
-                                  sums[c], coef, dim, c, q.data(), &m);
-        if (nan) {
-          int32_t r = 0;
-          while (qc[r] == qc[r]) ++r;
-          br = r;
-          bc = c;
+      for (int32_t k = 0; k < runs; ++k) {
+        const QBest& L = local[k];
+        if (L.nan) {
+          br = L.r;
+          bc = L.c;
           break;
         }
-        if (m < best) {
-          int32_t r = 0;
-          while (!(qc[r] == m)) ++r;
-          best = m;
-          br = r;
-          bc = c;
+        if (L.found && L.best < best) {
+          best = L.best;
+          br = L.r;
+          bc = L.c;
         }
       }
       i1 = std::min(br, bc);
@@ -1591,38 +1650,230 @@ int32_t gc_bionj(int32_t n, const double* D, const double* V,
     }
     nd[i1] = 0.0;
     nv[i1] = 0.0;
-
-    // Row and column i2 go; the new node's row and column take i1.
-    const int32_t tail = dim - 1 - i2;
-    for (int32_t c = 0; c < i2; ++c) {
-      double* row = dt.data() + (size_t)c * n;
-      std::memmove(row + i2, row + i2 + 1, sizeof(double) * tail);
-    }
-    for (int32_t c = i2; c < dim - 1; ++c) {
-      double* dst = dt.data() + (size_t)c * n;
-      const double* src = dst + n;
-      std::memcpy(dst, src, sizeof(double) * i2);
-      std::memcpy(dst + i2, src + i2 + 1, sizeof(double) * tail);
-    }
-    std::memmove(nd.data() + i2, nd.data() + i2 + 1, sizeof(double) * tail);
-    std::memmove(nv.data() + i2, nv.data() + i2 + 1, sizeof(double) * tail);
-    alive.erase(alive.begin() + i2);
-    for (int32_t j = 0; j < dim - 1; ++j) {
-      dt[(size_t)j * n + i1] = nd[j];
-      dt[(size_t)i1 * n + j] = nd[j];
-      var[(size_t)p1 * n + alive[j]] = nv[j];
-      var[(size_t)alive[j] * n + p1] = nv[j];
-    }
     join[2 * step] = i1;
     join[2 * step + 1] = i2;
     len[2 * step] = dist1;
     len[2 * step + 1] = dist2;
-    prev = i1;
+    return true;
   }
+
+  // Run k: row i2 goes from its columns, and column i2 from D, each of
+  // its columns past i2 taking the next one's rows (the last from the copy
+  // sum_run made, which the next run's first column has overwritten).
+  void compact_run(int32_t k) {
+    const int32_t tail = dim - 1 - i2, e = hi(k, dim - 1);
+    for (int32_t c = lo(k, dim - 1); c < e; ++c) {
+      double* dst = dt.data() + (size_t)c * n;
+      if (c < i2) {
+        std::memmove(dst + i2, dst + i2 + 1, sizeof(double) * tail);
+        continue;
+      }
+      const double* src = c + 1 == e ? saved[k].data() : dst + n;
+      std::memcpy(dst, src, sizeof(double) * i2);
+      std::memcpy(dst + i2, src + i2 + 1, sizeof(double) * tail);
+    }
+  }
+
+  // After a step: the new node's row and column take i1.  Where a step
+  // follows, they take them as its np.maximum and zeroed diagonals leave
+  // them (the only new entries it would change), so the row and column
+  // are walked once; the 3 x 3 D of the last step keeps them raw.
+  void finish() {
+    const int32_t tail = dim - 1 - i2, p1 = alive[i1];
+    std::memmove(nd.data() + i2, nd.data() + i2 + 1, sizeof(double) * tail);
+    std::memmove(nv.data() + i2, nv.data() + i2 + 1, sizeof(double) * tail);
+    alive.erase(alive.begin() + i2);
+    --dim;
+    ++step;
+    const bool next = dim > 3;
+    for (int32_t j = 0; j < dim; ++j) {
+      const double d = next ? at_least(nd[j], MIN_DIST) : nd[j];
+      const double v = next ? at_least(nv[j], MIN_VAR) : nv[j];
+      dt[(size_t)j * n + i1] = d;
+      dt[(size_t)i1 * n + j] = d;
+      var[(size_t)p1 * n + alive[j]] = v;
+      var[(size_t)alive[j] * n + p1] = v;
+    }
+    if (next) {
+      dt[(size_t)i1 * n + i1] = 0.0;
+      var[(size_t)p1 * n + p1] = 0.0;
+    }
+  }
+
+  // One step on the calling thread alone.  False for a plan's bad pair.
+  bool serial_step() {
+    runs = 1;
+    sum_run(0);
+    if (step >= n_plan) q_run(0, 0);
+    if (!pick()) return false;
+    compact_run(0);
+    finish();
+    return true;
+  }
+};
+
+// The team's parts of a step.  A part is published as one word,
+// generation << 32 | runs; thread t claims its own runs first (the block
+// t * kRunsPerThread ..., so each thread keeps its columns in its own
+// cache from part to part), then any run still unclaimed.  A run is
+// claimed by raising its flag from an earlier generation to the part's,
+// so a thread late from an earlier part can claim nothing.  The thread
+// that completes a part's last run does the O(dim) work after it and
+// publishes the next part (or the end): no thread waits for a given one,
+// only for runs that are claimed, so a thread the host takes off its core
+// holds up at most the run it is in.
+class BionjTeam {
+ public:
+  enum Part { kSums, kQ, kCompact };
+
+  BionjTeam(Bionj& S, int32_t threads, int64_t grain, int32_t n_threads)
+      : S_(S), T_(threads), grain_(grain), n_threads_(n_threads),
+        flags_(threads) {
+    for (auto& f : flags_)
+      for (auto& g : f.run) g.store(0, std::memory_order_relaxed);
+  }
+
+  // Runs the steps while the team is wanted; false for a plan's bad pair.
+  bool run() {
+    publish(kSums);
+    std::vector<std::thread> ts;
+    for (int32_t t = 1; t < T_; ++t) ts.emplace_back([this, t] { work(t); });
+    work(0);
+    for (auto& t : ts) t.join();
+    return ok_;
+  }
+
+ private:
+  void publish(Part part) {
+    S_.runs = T_ * kRunsPerThread;
+    part_ = part;
+    done_.store(0, std::memory_order_relaxed);
+    gen_ += 1;
+    word_.store(gen_ << 32 | (uint64_t)S_.runs, std::memory_order_release);
+  }
+
+  void end() { ended_.store(true, std::memory_order_release); }
+
+  // After the last run of a part: the O(dim) work, then the next part.
+  void after(Part part) {
+    if (part == kSums && S_.step >= S_.n_plan) return publish(kQ);
+    if (part != kCompact) {
+      if (!S_.pick()) {
+        ok_ = false;
+        return end();
+      }
+      return publish(kCompact);
+    }
+    S_.finish();
+    const int64_t cells = (int64_t)S_.dim * S_.dim;
+    if (S_.dim <= 3 || std::min<int64_t>(n_threads_, cells / grain_) < 2)
+      return end();
+    publish(kSums);
+  }
+
+  // Claims run k for generation gen: true if this thread raised its flag.
+  bool claim(int32_t k, uint64_t gen) {
+    std::atomic<uint64_t>& f = flags_[k / kRunsPerThread].run[k % kRunsPerThread];
+    uint64_t was = f.load(std::memory_order_relaxed);
+    return was < gen && f.compare_exchange_strong(was, gen,
+                                                  std::memory_order_acq_rel);
+  }
+
+  void work(int32_t t) {
+    uint64_t seen = 0;  // the last generation this thread worked on
+    for (int32_t spins = 0;;) {
+      if (ended_.load(std::memory_order_acquire)) return;
+      const uint64_t w = word_.load(std::memory_order_acquire);
+      const uint64_t gen = w >> 32;
+      if (gen == seen) {
+        if (++spins > 256) std::this_thread::yield();
+        continue;
+      }
+      spins = 0;
+      seen = gen;
+      const int32_t runs = (int32_t)(w & 0xffffffffu);
+      int32_t mine = 0;  // runs done, counted once when none is left
+      Part part = kSums;
+      for (int32_t i = 0; i < runs; ++i) {
+        const int32_t k = (t * kRunsPerThread + i) % runs;
+        if (!claim(k, gen)) continue;
+        part = part_;
+        if (part == kSums) S_.sum_run(k);
+        else if (part == kQ) S_.q_run(k, t);
+        else S_.compact_run(k);
+        ++mine;
+      }
+      if (mine && done_.fetch_add(mine, std::memory_order_acq_rel) + mine
+                      == runs)
+        after(part);
+    }
+  }
+
+  Bionj& S_;
+  const int32_t T_;
+  const int64_t grain_;
+  const int32_t n_threads_;
+  struct alignas(64) Flags {   // a thread's own runs, a cache line each
+    std::atomic<uint64_t> run[kRunsPerThread];
+  };
+  std::vector<Flags> flags_;   // per run: the generation that claimed it
+  alignas(64) std::atomic<uint64_t> word_{0};
+  alignas(64) std::atomic<int32_t> done_{0};
+  alignas(64) std::atomic<bool> ended_{false};
+  uint64_t gen_ = 0;     // written by the publishing thread only
+  Part part_ = kSums;    // published with word_
+  bool ok_ = true;
+};
+}  // namespace
+}  // extern "C++"
+
+// D and V are [n, n] row-major, n > 3, and are not written.  Step t joins
+// the current rows join[2t] < join[2t + 1] with branch lengths len[2t],
+// len[2t + 1]; the first n_plan steps take plan's pairs in place of the
+// Q matrix's minimum.  The 3 x 3 D left at the end goes to d_end.  Every
+// operation of the numpy loop is kept, in its order (the library is built
+// with -ffp-contract=off), so the joins and lengths are its bits: NJ breaks
+// ties on the last bit.  Returns 0, or -1 for a plan's pair that is no
+// pair of the current rows.
+//
+// Layout: dt holds D's columns as rows (dt[c * n + r] = D[r, c], the
+// column sums and the column-major minimum run along them), compacted in
+// place when a row and column go, so that the current rows stay in the
+// numpy order the sums depend on.  V is only read and written by row and
+// column, so it keeps its places and `alive` maps a current row to one.
+//
+// The O(dim^2) parts of a step (the column sums, the Q scan, the
+// compaction) are cut into runs of columns that a team of up to
+// n_threads threads claims (BionjTeam; the team lives for the call and
+// holds no Python lock).  Each column's sum and Q column is the serial
+// loop's, and the runs' picks are reduced in column order, so the result
+// does not depend on the team.  The team has a thread for each
+// kBionjGrain cells of D (the grain gc_batch_probe sets, where set) and
+// ends once a step has fewer than two threads' cells; the calling thread
+// runs the steps left.
+int32_t gc_bionj(int32_t n, const double* D, const double* V,
+                 int32_t n_plan, const int32_t* plan, int32_t* join,
+                 double* len, double* d_end, int32_t n_threads) {
+  const int64_t grain = g_grain > 0 ? g_grain : kBionjGrain;
+  const int32_t T = (int32_t)std::max<int64_t>(
+      1, std::min<int64_t>(n_threads, (int64_t)n * n / grain));
+  g_bionj_used = std::max(g_bionj_used, T);
+  Bionj S(n, D, V, n_plan, plan, join, len, T);
+  if (T > 1 && !BionjTeam(S, T, grain, n_threads).run()) return -1;
+  while (S.dim > 3)
+    if (!S.serial_step()) return -1;
   for (int32_t r = 0; r < 3; ++r)
     for (int32_t c = 0; c < 3; ++c)
-      d_end[r * 3 + c] = dt[(size_t)c * n + r];
+      d_end[r * 3 + c] = S.dt[(size_t)c * n + r];
   return 0;
+}
+
+// The most threads gc_bionj ran on since the last call, the count then
+// started anew.
+int32_t gc_bionj_probe() {
+  const int32_t used = g_bionj_used;
+  g_bionj_used = 0;
+  return used;
 }
 
 // ---------------------------------------------------------------------
@@ -1833,10 +2084,9 @@ enum BatchKind {
   kBatchKinds
 };
 
-// A per-thread work constant in place of every call's own (0: each
-// call's own), and the most threads each kind of call ran on since the
-// last gc_batch_probe.  Set and read by the calling thread only.
-int64_t g_grain = 0;
+// The most threads each kind of call ran on since the last
+// gc_batch_probe (g_grain above is the work constant it sets).  Set and
+// read by the calling thread only.
 int32_t g_used[kBatchKinds] = {};
 
 // The threads for a batch of ``items`` items and ``work`` units: at most

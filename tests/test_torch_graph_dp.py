@@ -172,12 +172,17 @@ def _chain_of(n, rng):
 
 def test_fallback_reasons_match_reference():
     """Pairs the batch refuses: the same reason as the reference's prep
-    (size over MAX_N, too many offsets, too long a reach)."""
+    (a pair past every launch, too many offsets, too long a reach).  The
+    reference refuses a side over its cap of 4,096 nodes (MAX_N, its TPU
+    plane budget); the port takes such a pair where its kernels hold it
+    (launch_fits), and the plain twins' mapping, score and n_tr_indels
+    equal the host's."""
     rng = np.random.RandomState(3)
     m = checks.model(0.3)
     small = _chain_of(20, rng)
+    side = 8200           # (2 * 8200) * 8200 * 8 bytes > LAUNCH_BYTES
     cases = {
-        "fb_size": (_chain_of(gdp.MAX_N + 1, rng), small),
+        "fb_size": (_chain_of(side, rng), _chain_of(side, rng)),
         "fb_offsets": (checks.many_offsets_graph(80, 70, 1), small),
         "fb_reach": (checks.heavy(270, [250], 2), checks.heavy(270, [250],
                                                                3)),
@@ -191,6 +196,70 @@ def test_fallback_reasons_match_reference():
         after = gdp.fallback_stats()
         assert after[reason] == before[reason] + 1
         assert after["pairs_device"] == before["pairs_device"]
+    # one side past the reference's cap: rows of a chain of 3 nodes, so
+    # the plain fill's diagonals stay short, and edges of offset 64 that
+    # the walk takes, so the plain chase's steps do too
+    pair = (_chain_of(3, rng), checks.heavy(ref_gdp.MAX_N + 1, [64], 5), m)
+    items, expected = checks.items_and_expected([pair])
+    assert ref_gdp._prep_pair(0, *items[0]) == "fb_size"
+    res, _ = _assert_batch([pair])
+    assert len(expected[0].mapping1) < 300
+
+
+class _Side:
+    """What ``_launches`` reads of a graph: its size and width."""
+
+    def __init__(self, size, dim=20):
+        self.size, self.dim = size, dim
+
+
+def _sized(sizes):
+    return [gdp.PairPrep(k, _Side(a), _Side(b), *([None] * 10))
+            for k, (a, b) in enumerate(sizes)]
+
+
+# (B, n1, n2, dim), whether one launch holds it, and the limit at stake
+LAUNCH_CASES = [
+    ((1, 865, 5767, 20), True, "the 2,000 run's largest pair"),
+    ((1, 8192, 8190, 20), True, "planes just within LAUNCH_BYTES"),
+    ((1, 8192, 8193, 20), False, "planes past LAUNCH_BYTES"),
+    ((1, 8, 27512, 20), True, "X1's shared memory just holds"),
+    ((1, 8, 27513, 20), False, "X1's shared memory"),
+    ((65535, 3, 3, 20), True, "K2's grid just holds"),
+    ((65536, 3, 3, 20), False, "K2's grid of pairs"),
+    ((1, 30, 30, 65), False, "K1's and K2's widths"),
+]
+
+
+@pytest.mark.parametrize("shape,fits,why", LAUNCH_CASES,
+                         ids=[c[2] for c in LAUNCH_CASES])
+def test_launch_fits_follows_the_kernels_plans(shape, fits, why):
+    """The size rule is the kernels' own limits: LAUNCH_BYTES, X1's shared
+    memory (plan_chase), K2's grid and the widths K1 and K2 take; the
+    reference's cap of 4,096 nodes a side is not one of them."""
+    B, n1, n2, dim = shape
+    assert gdp.launch_fits(B, n1, n2, dim) is fits
+    n1max = -(-n1 // 8) * 8
+    if why.startswith("X1"):
+        assert (plan_chase(B, MAX_SLOTS, n1max, n2).smem_bytes
+                <= SMEM_BYTES) is fits
+    assert (B * (n1 + n2) * n1 * 8 <= gdp.LAUNCH_BYTES) is (
+        fits or not why.startswith("planes"))
+
+
+def test_launches_cut_where_a_kernel_would_not_hold_the_launch():
+    """Two pairs whose planes fit one launch together but whose padded
+    shape X1's shared memory does not hold go to two launches; pairs go
+    on sharing a launch up to K2's grid; a pair past every launch never
+    reaches the cut."""
+    assert [len(c) for c in gdp._launches(_sized([(1000, 10),
+                                                   (10, 26600)]))] == [1, 1]
+    assert [len(c) for c in gdp._launches(_sized([(1000, 10),
+                                                   (10, 20000)]))] == [2]
+    assert [len(c) for c in gdp._launches(
+        _sized([(3, 3)] * 65537))] == [65535, 2]
+    with pytest.raises(AssertionError):
+        gdp._launches(_sized([(8192, 8193)]))
 
 
 def test_harvest_counts_rep_overflow_and_chase_failure_apart():

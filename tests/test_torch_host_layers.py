@@ -219,8 +219,8 @@ def test_offset_costs_rep(pair):
     for name in ("NEG", "COST_INF", "FLOOR", "BIG"):
         assert getattr(slots, name).tobytes() == \
             getattr(ref_gdp, name).tobytes(), name
-    assert (slots.MAX_N, slots.MAX_OFF, slots.TIERS, slots.EV_CAP) == \
-        (ref_gdp.MAX_N, ref_gdp.MAX_OFF, ref_gdp.TIERS, ref_gdp.EV_CAP)
+    assert (slots.MAX_OFF, slots.TIERS, slots.EV_CAP) == \
+        (ref_gdp.MAX_OFF, ref_gdp.TIERS, ref_gdp.EV_CAP)
     assert [slots.shb(op) for op, _ in slots.TIERS] == \
         [ref_gdp._shb(op) for op, _ in ref_gdp.TIERS]
     assert (slots.STATE_M, slots.STATE_X, slots.STATE_Y) == \
