@@ -44,11 +44,19 @@ torch's peak card memory on a line of its own (with ``--parent``, the
 parent tree's card run beside them).  Phase ``fam2000_default`` does the
 same at 2,000 sequences (32 launches of D1) against its golden, with each
 tier's ``distances``, ``nj``, ``tree_wait``, ``dp_device`` and
-``dp_fused`` and the card tier's ``torch_fb_*`` counts, and fails on any
-pair past every launch (``torch_fb_size``); it never runs the parent.
+``dp_fused`` and the card tier's device batch counters (``fb_*``,
+``pairs_*``, ``launches_wide``), and fails on any pair that leaves the
+card (every one of its 5,997 is taken); it never runs the parent.
 Phase ``wide_pair`` holds K1, K2 and K3 on a pair with a side of 5,800
 nodes (either order; rings in global memory) against their plain
 versions, and the whole batch against the host's ``align_graphs``.
+Phases ``fill_kernel`` and ``chase_kernel`` include pairs of int64 code
+words (141 offset slots and rings of 311 diagonals, either order; a
+repeat slot of index 68 on the walk), and phase ``wide_slots`` a pair at
+the largest wide shape of the 2,000 run (910 x 5,897 nodes, 50 x 156
+slots, R 415): K3 and X1 against their plain versions, the batch against
+the native host DP, both kernels timed (the kernels line's ``_wide``
+keys).
 Phase ``mesh`` (phase_mesh) holds the
 scale-out on the one card: the split programs and the level and
 root-search batches over 1, 2 and 4 shards of cuda:0 against the unsplit
@@ -131,8 +139,8 @@ from prographmsa_tpu_torch.align import scores_cuda
 from prographmsa_tpu_torch.align.chase_cuda import (MAX_WINDOW, N_STATS,
                                                     chase, chase_torch,
                                                     plan_chase, row_width)
-from prographmsa_tpu_torch.align.fill_cuda import (card_limits, fill,
-                                                   fill_torch, plan_fill)
+from prographmsa_tpu_torch.align.fill_cuda import (card_limits, code_dtype,
+                                                   fill, fill_torch, plan_fill)
 from prographmsa_tpu_torch.align.slots import COST_INF
 from prographmsa_tpu_torch.align.scores_cuda import (
     DGROUPS, S_SMEM_MAX, S_THREADS, XVECS, exact_s, plan_s,
@@ -566,10 +574,23 @@ def fill_pairs():
     return pairs, reps, single
 
 
+def wide_fill_pairs():
+    """Pairs of int64 code words: a heavy graph of 141 offset slots with a
+    skip of 300 (rings of 300 + 9 + 2 = 311 diagonals) against a heavy
+    graph of 5 slots, in both orders; and a repeat pair whose walk steps
+    through a repeat slot of index 68 (checks.wide_repeat_pair)."""
+    m = checks.model(0.5)
+    big = checks.heavy(420, list(range(2, 141)) + [300], 23, p_edge=0.1)
+    small = checks.heavy(200, [2, 3, 5, 9], 24)
+    return [(big, small, m), (small, big, m)], [checks.wide_repeat_pair()]
+
+
 def phase_fill_chase(dev):
     pairs, reps, single = fill_pairs()
+    wide, wide_reps = wide_fill_pairs()
     groups = ((pairs, checks.OPTS), (reps, checks.REPEAT_OPTS),
-              (single, checks.OPTS))
+              (single, checks.OPTS), (wide, checks.OPTS),
+              (wide_reps, checks.REPEAT_OPTS))
     n_pairs = n_rep = n_layouts = 0
     t1 = time.perf_counter()
     outs = []
@@ -581,8 +602,21 @@ def phase_fill_chase(dev):
         n_layouts += n
         outs.append((items, expected, bt, fo))
         n_pairs += len(items)
+    (_, _, bt_w, fo_w), (_, _, bt_r, fo_r) = outs[-2:]
+    if (bt_w.O1.shape[1] <= 128 or bt_w.Rmax <= 256
+            or code_dtype(bt_r.O1.shape[1]) != torch.int64
+            or {fo_w.codes.dtype, fo_r.codes.dtype} != {torch.int64}):
+        raise AssertionError("fill_chase: the wide pairs are not wide: %d "
+                             "and %d slots, R %d"
+                             % (bt_w.O1.shape[1], bt_r.O1.shape[1],
+                                bt_w.Rmax))
     say("fill_kernel", t1, pairs=n_pairs, layouts_checked=n_layouts,
-        codes_rings_stripes="bit-identical")
+        codes_rings_stripes="bit-identical",
+        wide_pairs=len(wide) + len(wide_reps),
+        wide_slots="%d,%d" % (bt_w.O1.shape[1], bt_r.O1.shape[1]),
+        wide_R=bt_w.Rmax, wide_codes="int64",
+        wide_own_plan_rings="shared" if bt_w.plan.smem_rings else "global",
+        wide_rings_checked="shared+global")
 
     t1 = time.perf_counter()
     n_layouts = n_over = 0
@@ -608,7 +642,8 @@ def phase_fill_chase(dev):
     say("chase_kernel", t1, pairs=n_pairs, layouts_checked=n_layouts,
         pairs_with_repeat_events=n_rep, pairs_with_event_overflow=n_over,
         vs_plain="bit-identical rows", vs_model="equal counts",
-        vs_native="mappings+score+n_tr identical")
+        vs_native="mappings+score+n_tr identical",
+        wide_repeat_slot=list(outs[-1][2].O1[0].tolist()).index(71))
 
 
 def wide_pairs():
@@ -656,6 +691,91 @@ def phase_wide_pair(dev):
     say("wide_pair", t1, pairs=",".join(shapes), rings="shared+global",
         vs_plain="K1,K2,K3 bit-identical",
         vs_host="mappings+score+n_tr identical")
+
+
+# The census's pair of most rings at 2,000 sequences with every slot table
+# wide (dp_refusals.py --n 2000): n1, n2, each side's slots and largest
+# offset; R = 178 + 235 + 2 = 415.
+CENSUS_PAIR = ((910, 50, 178), (5897, 156, 235))
+
+
+def census_graph(n, slots, reach, seed, p_edge):
+    """A heavy graph of ``n`` nodes with ``slots`` offset slots (the
+    chain's 1 and ``slots - 1`` others up to ``reach``, ``reach`` among
+    them), each node's extra edge at each offset with probability
+    ``p_edge``: a mean in-degree of a few, like a merged graph's."""
+    rng = np.random.RandomState(seed)
+    offs = rng.choice(np.arange(2, reach), slots - 2, replace=False)
+    return checks.heavy(n, sorted(offs.tolist()) + [reach], seed + 1,
+                        p_edge=p_edge)
+
+
+def phase_wide_slots(dev):
+    """A pair at the census's largest wide shape (CENSUS_PAIR: 910 x 5,897
+    nodes, 50 x 156 offset slots, R 415) through the batch against the
+    native host DP (mappings, score bits, n_tr_indels), and its launch's
+    K3 and X1 (int64 code words, the rings in global memory) against
+    fill_torch and chase_torch bit for bit, the plain versions timed on
+    that one call, the kernels in call time and device time.  Returns the
+    kernels line's ``_wide`` numbers."""
+    t1 = time.perf_counter()
+    (n1, k1, o1), (n2, k2, o2) = CENSUS_PAIR
+    m = checks.model(0.4)
+    g1 = census_graph(n1, k1, o1, 41, 0.05)
+    g2 = census_graph(n2, k2, o2, 43, 0.02)
+    sc = checks.DynProgScores(g1, g2, m, checks.OPTS)
+    items = [(g1, g2, m, sc)]
+    preps, bt = pack(items, dev)
+    p = preps[0]
+    if (len(p.o1), len(p.o2), p.R, p.shb) != (k1, k2, o1 + o2 + 2, 8) or \
+            bt.plan.smem_rings:
+        raise AssertionError("census pair: %d x %d slots, R %d, shb %d, "
+                             "plan %s" % (len(p.o1), len(p.o2), p.R, p.shb,
+                                          bt.plan))
+    Sd = exact_s(bt.g1T, bt.g2T, bt.M, bt.pi, bt.mi, bt.n1, bt.n2)
+    fa = fill_args(Sd, bt)
+    fo = fill(*fa, bt.plan)
+    (fill_plain_ms,), fp = time_plain_once(lambda: fill_torch(*fa))
+    for name, a, b in zip(fo._fields, fo, fp):
+        diff("fill", a, b, "%s of the census pair" % name)
+    del fp
+    ca = chase_args(bt)
+    stats = torch.zeros((1, N_STATS), dtype=torch.int32, device=dev)
+    got = chase(fo, *ca, stats=stats)
+    (chase_plain_ms,), want = time_plain_once(lambda: chase_torch(fo, *ca))
+    diff("chase", got, want, "row of the census pair")
+    res = gdp.align_pairs_device(items, dev)[0]
+    nat = checks.native_align(*items[0])
+    if not checks.same_alignment(res, nat):
+        raise AssertionError("census pair: the batch differs from the "
+                             "native host DP")
+    reps = 3
+    run_fill = lambda: fill(*fa, bt.plan)
+    run_chase = lambda: chase(fo, *ca)
+    steps = stats.cpu().numpy()[:, 0]
+    bnd = bounds(preps, steps, bt.Lm)
+    out = {}
+    for k, fn, plain_ms in (("fill", run_fill, fill_plain_ms),
+                            ("chase", run_chase, chase_plain_ms)):
+        out[k] = {"ms": min(time_cuda(fn, reps) for _ in range(2)),
+                  "device_ms": device_time(fn, reps),
+                  "plain_ms": plain_ms, "bound_ms": bnd[k][0],
+                  "bound_by": bnd[k][1]}
+    out["chase"]["steps"] = int(steps[0])
+    shape = "%dx%d_slots%dx%d_R%d" % (n1, n2, k1, k2, p.R)
+    say("wide_slots", t1, pair=shape, codes=str(fo.codes.dtype),
+        fill_plan=json.dumps(bt.plan._asdict(), separators=(",", ":")),
+        vs_plain="K3,X1 bit-identical",
+        vs_native="mappings+score+n_tr identical",
+        **{"%s_%s" % (k, q): ("%.4f" % v if isinstance(v, float) else v)
+           for k, r in out.items() for q, v in r.items()})
+    return shape, out
+
+
+def time_plain_once(plain):
+    """(the call's ms, its result) of one call of a plain version."""
+    res = []
+    return (time_cuda(lambda: res.append(plain()), 1, warm=False),), res[0]
 
 
 def run_port(argv, record=None):
@@ -1105,7 +1225,8 @@ def memory_run(tree, fasta, out, extra=(), limit_s=900):
         return wall, dict(json.load(f), host_rss_bytes=rss), text
 
 
-def phase_default_run(tmp, label, n, gold_path, parent=None):
+def phase_default_run(tmp, label, n, gold_path, parent=None,
+                      all_on_card=False):
     """The CLI's default run (``--fasta``: ``-i 2``, two re-trees from
     prealigned distances, D1 on the card) on ``make_family(n, 300, AA,
     0)`` as bench_torch.py makes fam1000, in a process of its own, against
@@ -1120,7 +1241,8 @@ def phase_default_run(tmp, label, n, gold_path, parent=None):
     counts, and on a line of its own
     the peak host RSS and torch's peak card memory.  With ``parent``, the
     tree at that path runs the card tier before and after this one (held
-    to the golden too).  Returns the card tier's counters."""
+    to the golden too).  With ``all_on_card``, fails on any pair that left
+    the card's batch.  Returns the card tier's counters."""
     t0 = time.perf_counter()
     _, length, seed = FAM1000
     fasta = os.path.join(tmp, "%s_seed%d.fasta" % (label, seed))
@@ -1154,11 +1276,13 @@ def phase_default_run(tmp, label, n, gold_path, parent=None):
         raise AssertionError("%s: --engine native launched %s"
                              % (label, nat["launches"]))
     ctr = counters_of(port["err"])
-    fb = {k[len("torch_"):]: v for k, v in ctr.items()
-          if k.startswith("torch_fb_") or k.startswith("torch_pairs_")}
+    fb = {k: ctr.get("torch_" + k, 0)
+          for k in gdp.FALLBACK_KEYS + gdp.WIDE_KEYS}
     if ctr.get("torch_fb_size", 0):
         raise AssertionError("%s: %d pairs past every launch (fb_size)"
                              % (label, ctr["torch_fb_size"]))
+    if all_on_card:
+        check_counters(ctr, label)
     gb = lambda b: "%.3f" % (b / 1e9) if b is not None else "none"
     phases = ("distances", "ml_newton", "nj", "tree_wait", "dp_device",
               "dp_fused")
@@ -1191,7 +1315,7 @@ def phase_fam2000_default(tmp):
     (the top of the tree's pairs pass 4,096 nodes a side), BioNJ over the
     native library's threads.  Run without a parent tree."""
     return phase_default_run(tmp, "fam2000_default", FAM2000[0],
-                             FAM2000_GOLDEN)
+                             FAM2000_GOLDEN, all_on_card=True)
 
 
 def interrupted_run(argv, at_pass):
@@ -1486,8 +1610,8 @@ def phase_reroot(tmp, runs, parent=None):
         if name == "r_fam100" and not launches["pair_stats"]:
             raise AssertionError("r_fam100: D1 was not launched on the "
                                  "re-trees: %s" % launches)
-        if "-r" in args and (ctr["torch_pairs_device"]
-                             != ctr["torch_pairs_total"] or any(fb.values())):
+        if (ctr["torch_pairs_device"] != ctr["torch_pairs_total"]
+                or any(fb.values())):
             raise AssertionError("%s: pairs left the card: %s"
                                  % (name, ctr))
         score = [ln for ln in err.splitlines()
@@ -1506,7 +1630,7 @@ def phase_reroot(tmp, runs, parent=None):
             dp_harvest_s=timing_of(err, "dp_harvest"),
             merge_s="%s/%s" % (timing_of(err, "merge"),
                                timing_of(err_nat, "merge")),
-            **fb)
+            **fb, **{k: ctr.get("torch_" + k, 0) for k in gdp.WIDE_KEYS})
         if "prep" in run:
             prep_check(run["prep"], t0)
         if parent and name == "r_fam500_i0":
@@ -1905,12 +2029,18 @@ def bounds(preps, steps, Lm):
         op["s"] += 2 * dim * n1 * n2 + (2 * dim + 3) * n1 + s_cell * n1 * n2
         op_s_old += 2 * dim * n1 * n2 + 2 * dim * n1 + 12 * n1 * n2
         # S in, codes out, slot tables in, four rings and two stripes out
-        by["fill"] += 4 * (2 * n1 * n2 + nl1 * n1 + nl2 * n2 + nl1 + nl2
-                           + 4 * p.R * n1 + n1 + n2)
+        # the code word: 4 bytes, 8 past 64 slots (int64)
+        cw = code_dtype(gdp.slots_of(p)).itemsize
+        by["fill"] += 4 * (n1 * n2 + nl1 * n1 + nl2 * n2 + nl1 + nl2
+                           + 4 * p.R * n1 + n1 + n2) + cw * n1 * n2
         # 3 per match candidate, 7 per edge of a Y or X move, 12 per cell
         op["fill"] += 3 * e1 * e2 + 7 * (e1 * n2 + e2 * n1) + 12 * n1 * n2
-        by["chase"] += 4 * (row_width(Lm) + 3 * int(steps[k])
-                            + 3 * p.R * nl1 * nl2)
+        # a step reads a code word and writes two mapping entries; the end
+        # transition reads one cell of each of three rings per slot pair,
+        # and each slot's offset and end cost
+        by["chase"] += 4 * (row_width(Lm) + 2 * int(steps[k])
+                            + 3 * nl1 * nl2 + 2 * (nl1 + nl2)) \
+            + cw * int(steps[k])
         op["chase"] += 12 * nl1 * nl2 + 10 * int(steps[k])
     out = {}
     for k in DP_KERNELS:
@@ -2641,6 +2771,7 @@ def main():
     phase_s(dev)
     phase_fill_chase(dev)
     phase_wide_pair(dev)
+    wide_shape, wide = phase_wide_slots(dev)
     os.makedirs(OUT, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=OUT) as tmp:
         launches, launches_c2, largest = phase_fam100(dev, tmp)
@@ -2651,7 +2782,7 @@ def main():
         phase_threads(tmp, runs, smi)
         phase_start(runs)
         phase_fam1000_default(tmp, parent)
-        phase_fam2000_default(tmp)
+        ctr2000 = phase_fam2000_default(tmp)
         launches_resume = phase_resume(tmp, runs, smi)
         launches500, root, sum500, sum500_dev, levels500 = phase_levels(
             dev, tmp)
@@ -2709,6 +2840,17 @@ def main():
                 for name_, (call, device) in r["exact_s"].items():
                     row["exact_s_%s_ms%s" % (name_, sfx)] = call
                     row["exact_s_%s_device_ms%s" % (name_, sfx)] = device
+        if k in wide:    # int64 code words: the census pair, fam2000
+            row["shape_wide"] = wide_shape
+            for key, v in wide[k].items():
+                row[key + "_wide"] = v
+            row["launches_wide_fam2000"] = ctr2000.get(
+                "torch_launches_wide", 0)
+            if k == "chase":
+                row["chain_ms_wide"] = (wide[k]["steps"]
+                                        * floors["shared_read_ms"])
+                row["chain_l2_ms_wide"] = (wide[k]["steps"]
+                                           * floors["l2_read_ms"])
         kern.append(row)
     # the distance kernels: launches from the free-tree run (c2_fam100)
     kern.append(dist_row("nw", launches_c2, res_nw, "fam100"))

@@ -2,9 +2,10 @@
 its plain PyTorch version ``chase_torch``.
 
 Replaces the XLA program prographmsa_tpu/align/graph_dp_pallas.py
-(_make_chase, _jit_pack).  Inputs: the fill's ``FillOut`` plus the tables
-the fill read (O1, O2, C1T, C2T, iv, par) and the repeat-slot flags
-R1T [B, opmax, n1max], R2T [B, opmax, n2max] uint8.  Output: one packed
+(_make_chase, _jit_pack).  Inputs: the fill's ``FillOut`` (int32 codes,
+or int64 past NARROW_OFF slots) plus the tables the fill read (O1, O2, C1T,
+C2T, iv, par) and the repeat-slot flags R1T [B, opmax, n1max],
+R2T [B, opmax, n2max] uint8.  Output: one packed
 int32 row per pair,
   m1[Lm], m2[Lm]            the mapping in walk order (end first), -2 padded
   meta[4]                   Wend (float32 bits), length, fail_rep, fail_chase
@@ -21,9 +22,9 @@ import torch
 
 from .. import _build
 from ..device import on_cuda
-from .fill_cuda import MAX_SLOTS, FillOut
-from .slots import (BIG, COST_INF, EV_CAP, NEG, STATE_M, STATE_X,
-                    STATE_Y)
+from .fill_cuda import FillOut, code_dtype
+from .slots import (BIG, COST_INF, EV_CAP, MAX_OFF, NARROW_OFF, NEG, STATE_M,
+                    STATE_X, STATE_Y, wide)
 
 META_SCORE, META_LEN, META_FAIL_REP, META_FAIL_CHASE = range(4)
 N_META = 4
@@ -60,8 +61,8 @@ def plan_chase(B: int, opmax: int, n1max: int, n2max: int,
     masks of every node and the stores of the padded row, which grow with
     n1max.  ``win`` (even) and ``threads`` override the defaults (checks
     and measurements only)."""
-    if opmax > MAX_SLOTS:
-        raise ValueError("%d offset slots > %d" % (opmax, MAX_SLOTS))
+    if opmax > MAX_OFF:
+        raise ValueError("%d offset slots > %d" % (opmax, MAX_OFF))
     if not 2 <= win <= MAX_WINDOW or win % 2:
         raise ValueError("window %d not even or outside 2..%d"
                          % (win, MAX_WINDOW))
@@ -71,10 +72,16 @@ def plan_chase(B: int, opmax: int, n1max: int, n2max: int,
         threads = 32 * min(MAX_WARPS, 1 << (want - 1).bit_length())
     if threads % 32 or not 32 <= threads <= 32 * MAX_WARPS:
         raise ValueError("threads %d" % threads)
-    # int wcode[win * win], o1s[MAX_SLOTS], o2s[MAX_SLOTS], two buffers of
-    # 2 * win mapping entries; one uint64 mask of repeat slots per row and
-    # per column
-    smem = 4 * (win * win + 2 * MAX_SLOTS + 4 * win) + 8 * (n1max + n2max)
+    # up to NARROW_OFF slots: int wcode[win * win], o1s[64], o2s[64], two
+    # buffers of 2 * win mapping entries, one uint64 mask of repeat slots
+    # per row and per column; past it: int64 wcode[win * win], o1s[256],
+    # o2s[256], the buffers, one byte per row and column (any repeat slot)
+    if not wide(opmax):
+        smem = 4 * (win * win + 2 * NARROW_OFF + 4 * win) + 8 * (n1max
+                                                                 + n2max)
+    else:
+        smem = (8 * win * win + 4 * (2 * (MAX_OFF + 1) + 4 * win)
+                + n1max + n2max)
     return ChasePlan(B, threads, win, smem)
 
 
@@ -89,7 +96,7 @@ def chase(fo: FillOut, O1, O2, C1T, C2T, R1T, R2T, iv, par, Lm: int,
     B, D, n1max = fo.codes.shape
     Rmax = fo.ringW.shape[1]
     opmax, n2max = C2T.shape[1], C2T.shape[2]
-    _build.check_args("chase", (fo.codes, torch.int32, (B, D, n1max)),
+    _build.check_args("chase", (fo.codes, code_dtype(opmax), (B, D, n1max)),
                       (fo.ringM, torch.float32, (B, Rmax, n1max)),
                       (fo.ringX, torch.float32, (B, Rmax, n1max)),
                       (fo.ringY, torch.float32, (B, Rmax, n1max)),

@@ -11,9 +11,11 @@ exactly and what the design does on this card.  Inputs, batch-padded:
                                 (COST_INF where there is none)
   iv [B, 8] int32               n1, n2, nl1, nl2, R, shb
   par [B, 8] f32                ge, gi, sg, si, em, eg, es
-Outputs (``FillOut``): codes [B, D, n1max] int32, the final rings W/Y/X/M
-[B, Rmax, n1max] f32 and the boundary stripes Y[:, 0] [B, n1max] and
-X[0, :] [B, n2max].
+Outputs (``FillOut``): codes [B, D, n1max] int32, or int64 where opmax is
+past NARROW_OFF slots (``slots.wide``, ``code_dtype``: 8-bit slot fields),
+the final rings W/Y/X/M [B, Rmax, n1max] f32 and the boundary stripes
+Y[:, 0] [B, n1max] and X[0, :] [B, n2max].  Up to MAX_OFF slots a side and
+any Rmax below 2^23 (the kernel's edge lists pack an offset into 23 bits).
 
 Only slots with an edge into the node are candidates (cost < COST_INF on
 both sides for a match).  An edge-less candidate is about NEG and loses to
@@ -33,9 +35,9 @@ import torch
 
 from .. import _build
 from ..device import on_cuda
-from .slots import COST_INF, FLOOR, NEG
+from .slots import COST_INF, FLOOR, MAX_OFF, NEG, wide
 
-MAX_SLOTS = 64                  # the kernel's shared offset tables
+MAX_RING = 1 << 23              # an edge list entry: slot | offset << 8
 MAX_BLOCKS_PER_PAIR = 8         # portable thread block cluster size
 WIDE_BLOCKS_PER_PAIR = 16       # non-portable size: only where card_limits
                                 # finds that the card can hold it
@@ -132,19 +134,24 @@ def card_limits(device) -> tuple:
     return _card_limits[idx]
 
 
-def _alloc(B, D, n1max, n2max, Rmax, dev, filled: bool) -> FillOut:
+def code_dtype(opmax: int) -> torch.dtype:
+    """The code plane's type for a launch of ``opmax`` slots a side."""
+    return torch.int64 if wide(opmax) else torch.int32
+
+
+def _alloc(B, D, n1max, n2max, Rmax, opmax, dev, filled: bool) -> FillOut:
     """Output tensors: ``filled`` for the plain version, which writes the
     live positions only; the kernel writes every position itself."""
     f32 = torch.float32
     if not filled:
         return FillOut(
-            torch.empty((B, D, n1max), dtype=torch.int32, device=dev),
+            torch.empty((B, D, n1max), dtype=code_dtype(opmax), device=dev),
             *(torch.empty((B, Rmax, n1max), dtype=f32, device=dev)
               for _ in range(4)),
             torch.empty((B, n1max), dtype=f32, device=dev),
             torch.empty((B, n2max), dtype=f32, device=dev))
     return FillOut(
-        torch.zeros((B, D, n1max), dtype=torch.int32, device=dev),
+        torch.zeros((B, D, n1max), dtype=code_dtype(opmax), device=dev),
         *(torch.full((B, Rmax, n1max), NEG, dtype=f32, device=dev)
           for _ in range(4)),
         torch.full((B, n1max), NEG, dtype=f32, device=dev),
@@ -154,13 +161,16 @@ def _alloc(B, D, n1max, n2max, Rmax, dev, filled: bool) -> FillOut:
 def fill(Sdiag, O1, O2, C1T, C2T, iv, par, Rmax: int,
          plan: FillPlan | None = None) -> FillOut:
     """K3 on CUDA tensors (laid out by ``plan``, default ``plan_fill`` for
-    single-candidate cells), ``fill_torch`` on CPU tensors."""
+    single-candidate cells), ``fill_torch`` on CPU tensors.  The kernel's
+    code width follows opmax (``code_dtype``)."""
     if not on_cuda(Sdiag, O1, O2, C1T, C2T, iv, par):
         return fill_torch(Sdiag, O1, O2, C1T, C2T, iv, par, Rmax)
     B, D, n1max = Sdiag.shape
     opmax, n2max = C2T.shape[1], C2T.shape[2]
-    if opmax > MAX_SLOTS:
-        raise ValueError("%d offset slots > %d" % (opmax, MAX_SLOTS))
+    if opmax > MAX_OFF:
+        raise ValueError("%d offset slots > %d" % (opmax, MAX_OFF))
+    if Rmax >= MAX_RING:        # every offset is below R <= Rmax
+        raise ValueError("rings of %d diagonals >= %d" % (Rmax, MAX_RING))
     _build.check_args("fill", (Sdiag, torch.float32, (B, D, n1max)),
                       (O1, torch.int32, (B, opmax)),
                       (O2, torch.int32, (B, opmax)),
@@ -170,7 +180,7 @@ def fill(Sdiag, O1, O2, C1T, C2T, iv, par, Rmax: int,
     if plan is None:
         plan = plan_fill(B, n1max, Rmax)
     dev = Sdiag.device
-    out = _alloc(B, D, n1max, n2max, Rmax, dev, filled=False)
+    out = _alloc(B, D, n1max, n2max, Rmax, opmax, dev, filled=False)
     # per-node edge lists (slot | offset << 8, cost bits) and their lengths
     E1 = torch.empty((B, opmax, n1max, 2), dtype=torch.int32, device=dev)
     E2 = torch.empty((B, opmax, n2max, 2), dtype=torch.int32, device=dev)
@@ -211,12 +221,13 @@ def _fmax_chain(v, valid):
 def fill_torch(Sdiag, O1, O2, C1T, C2T, iv, par, Rmax: int) -> FillOut:
     """The plain PyTorch version of K3: the same diagonals, candidates (the
     slots with an edge into the node), op orders and tie-breaks, vectorised
-    over pairs, rows and slots."""
+    over pairs, rows and slots (each side's up to its most slots in the
+    batch, P1 and P2: the slots past a pair's own are never candidates)."""
     B, D, n1max = Sdiag.shape
-    P, n2max = C2T.shape[1], C2T.shape[2]
+    opmax, n2max = C2T.shape[1], C2T.shape[2]
     dev = Sdiag.device
     f32 = torch.float32
-    out = _alloc(B, D, n1max, n2max, Rmax, dev, filled=True)
+    out = _alloc(B, D, n1max, n2max, Rmax, opmax, dev, filled=True)
     codes, ringW, ringY, ringX, ringM, stripeY, stripeX = out
     iv = iv.long()
     n1, n2, nl1, nl2, R, shb = (iv[:, k] for k in range(6))
@@ -228,26 +239,29 @@ def fill_torch(Sdiag, O1, O2, C1T, C2T, iv, par, Rmax: int) -> FillOut:
     ringW[:, 0, 0] = si
 
     # slot visit order: a = 0.. -> slot nl - 1 - a (descending)
-    a = torch.arange(P, device=dev)
-    i_idx = (nl1[:, None] - 1 - a[None, :]).clamp(min=0)
-    j_idx = (nl2[:, None] - 1 - a[None, :]).clamp(min=0)
-    ok_i = a[None, :] < nl1[:, None]
-    ok_j = a[None, :] < nl2[:, None]
+    P1, P2 = max(1, int(nl1.max())), max(1, int(nl2.max()))
+    a1 = torch.arange(P1, device=dev)
+    a2 = torch.arange(P2, device=dev)
+    i_idx = (nl1[:, None] - 1 - a1[None, :]).clamp(min=0)
+    j_idx = (nl2[:, None] - 1 - a2[None, :]).clamp(min=0)
+    ok_i = a1[None, :] < nl1[:, None]
+    ok_j = a2[None, :] < nl2[:, None]
     o1 = O1.long().gather(1, i_idx)
     o2 = O2.long().gather(1, j_idx)
-    c1 = C1T.gather(1, i_idx[:, :, None].expand(B, P, n1max))     # [B, P, N]
-    c2 = C2T.gather(1, j_idx[:, :, None].expand(B, P, n2max))
+    c1 = C1T.gather(1, i_idx[:, :, None].expand(B, P1, n1max))   # [B, P1, N]
+    c2 = C2T.gather(1, j_idx[:, :, None].expand(B, P2, n2max))
     row1 = ys[None, None, :] - o1[:, :, None]                       # y - o1
     okrow1 = row1 >= 0
     row1 = row1.clamp(min=0)
     Wf, Yf, Xf = (r.view(B, Rmax * n1max) for r in (ringW, ringY, ringX))
     two = torch.arange(2, device=dev)
-    codeY = ((i_idx[:, :, None] << 1) | two).reshape(B, 2 * P)
-    codeX = ((j_idx[:, :, None] << 1) | two).reshape(B, 2 * P)
+    codeY = ((i_idx[:, :, None] << 1) | two).reshape(B, 2 * P1)
+    codeX = ((j_idx[:, :, None] << 1) | two).reshape(B, 2 * P2)
     codeM = ((i_idx[:, :, None] << shb[:, None, None])
-             | j_idx[:, None, :]).reshape(B, P * P)
-    e1 = ok_i[:, :, None] & (c1 < cinf)          # [B, P, N]: edge into y
-    okY = e1[:, :, None, :].expand(B, P, 2, n1max).reshape(B, 2 * P, n1max)
+             | j_idx[:, None, :]).reshape(B, P1 * P2)
+    e1 = ok_i[:, :, None] & (c1 < cinf)          # [B, P1, N]: edge into y
+    okY = e1[:, :, None, :].expand(B, P1, 2, n1max).reshape(B, 2 * P1,
+                                                            n1max)
     dfull = n1 + n2 - 2
     ylive = ys[None, :] < n1[:, None]
     yl = (ys[None, :] >= 1) & (ys[None, :] <= (n1 - 2)[:, None])
@@ -260,46 +274,46 @@ def fill_torch(Sdiag, O1, O2, C1T, C2T, iv, par, Rmax: int) -> FillOut:
         x = d - ys                                                   # [N]
         xin = (x[None, :] >= 0) & (x[None, :] < n2[:, None])         # [B, N]
         cj = c2.gather(2, x.clamp(0, n2max - 1)[None, None, :]
-                       .expand(B, P, n1max))
-        cj = torch.where(xin[:, None, :], cj, cinf)                  # [B, P, N]
+                       .expand(B, P2, n1max))
+        cj = torch.where(xin[:, None, :], cj, cinf)                 # [B, P2, N]
         e2 = ok_j[:, :, None] & (cj < cinf)                          # edge into x
-        okX = e2[:, :, None, :].expand(B, P, 2, n1max).reshape(
-            B, 2 * P, n1max)
+        okX = e2[:, :, None, :].expand(B, P2, 2, n1max).reshape(
+            B, 2 * P2, n1max)
         okM = (e1[:, :, None, :] & e2[:, None, :, :]).reshape(
-            B, P * P, n1max)
+            B, P1 * P2, n1max)
         Sd = Sdiag[:, d, :]
 
         # Y: per slot the Y move, then the W move
-        ds = d - o1                                                  # [B, P]
+        ds = d - o1                                                 # [B, P1]
         ok = (ds >= 0)[:, :, None] & okrow1
         k = ds.remainder(R[:, None])
-        w = torch.where(ok, ring(Wf, k, row1, (B, P, n1max)), neg)
-        yv = torch.where(ok, ring(Yf, k, row1, (B, P, n1max)), neg)
+        w = torch.where(ok, ring(Wf, k, row1, (B, P1, n1max)), neg)
+        yv = torch.where(ok, ring(Yf, k, row1, (B, P1, n1max)), neg)
         tge = yv + ge[:, None, None]
         cand = torch.stack([tge - c1, (w + gi[:, None, None]) - c1], 2)
-        aY, cY = _first_max(cand.reshape(B, 2 * P, n1max), okY, codeY)
+        aY, cY = _first_max(cand.reshape(B, 2 * P1, n1max), okY, codeY)
         aYB = _fmax_chain(torch.fmax(tge, w + sg[:, None, None]) - c1, e1)
 
         # M: g1 slots outer, g2 slots inner
-        ds2 = d - o1[:, :, None] - o2[:, None, :]                    # [B, P, P]
+        ds2 = d - o1[:, :, None] - o2[:, None, :]                  # [B, P1, P2]
         ok2 = (ds2 >= 0)[..., None] & okrow1[:, :, None, :]
         k2 = ds2.remainder(R[:, None, None])
         w2 = torch.where(ok2, ring(Wf, k2, row1[:, :, None, :],
-                                   (B, P, P, n1max)), neg)
+                                   (B, P1, P2, n1max)), neg)
         cand = (((w2 + Sd[:, None, None, :]) - c1[:, :, None, :])
                 - cj[:, None, :, :])
-        aM, cM = _first_max(cand.reshape(B, P * P, n1max), okM, codeM)
+        aM, cM = _first_max(cand.reshape(B, P1 * P2, n1max), okM, codeM)
 
         # X: per slot the X move, then the W move
         ds = d - o2
-        ok = (ds >= 0)[:, :, None].expand(B, P, n1max)
+        ok = (ds >= 0)[:, :, None].expand(B, P2, n1max)
         k = ds.remainder(R[:, None])
-        rows = ys[None, None, :].expand(B, P, n1max)
-        xv = torch.where(ok, ring(Xf, k, rows, (B, P, n1max)), neg)
-        wv = torch.where(ok, ring(Wf, k, rows, (B, P, n1max)), neg)
+        rows = ys[None, None, :].expand(B, P2, n1max)
+        xv = torch.where(ok, ring(Xf, k, rows, (B, P2, n1max)), neg)
+        wv = torch.where(ok, ring(Wf, k, rows, (B, P2, n1max)), neg)
         tge = xv + ge[:, None, None]
         cand = torch.stack([tge - cj, (wv + gi[:, None, None]) - cj], 2)
-        aX, cX = _first_max(cand.reshape(B, 2 * P, n1max), okX, codeX)
+        aX, cX = _first_max(cand.reshape(B, 2 * P2, n1max), okX, codeX)
         aXB = _fmax_chain(torch.fmax(tge, wv + sg[:, None, None]) - cj, e2)
 
         xl = (x[None, :] >= 1) & (x[None, :] <= (n2 - 2)[:, None])
@@ -318,7 +332,7 @@ def fill_torch(Sdiag, O1, O2, C1T, C2T, iv, par, Rmax: int) -> FillOut:
                 | (wst << (4 * s + 2)))
 
         act = ylive & (d <= dfull)[:, None]
-        codes[:, d, :] = torch.where(act & xin, code, 0).to(torch.int32)
+        codes[:, d, :] = torch.where(act & xin, code, 0).to(codes.dtype)
         slot = d % R
         for rg, v in ((ringW, Wr), (ringY, Yr), (ringX, Xr), (ringM, Mr)):
             rg[ar, slot] = torch.where(act, v, rg[ar, slot])

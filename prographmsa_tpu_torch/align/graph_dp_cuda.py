@@ -10,14 +10,19 @@ counted under its reason in ``fallback_stats()``:
   fb_size     the pair alone does not fit one launch (``launch_fits``:
               its planes exceed LAUNCH_BYTES, or the plan of K1, K2, K3 or
               X1 cannot hold it);
-  fb_offsets  more than MAX_OFF distinct predecessor offsets on a side;
-  fb_reach    largest offset sum above 254 (ring of more than 256 diagonals);
+  fb_offsets  more than MAX_OFF (255) distinct predecessor offsets on a
+              side;
+  fb_reach    the pair fits one launch without its rings but not with them
+              (its reach R = largest offset sum + 2 is any size else);
   fb_rep      more than EV_CAP repeat events on the walk;
   fb_chase    the walk did not reach the origin (never seen: a guard).
 The reference counts chase failures as fb_rep; here they are apart.  Its
-TPU-only rules (the per-side cap of 4,096 nodes, its HBM plane budget; the
-VMEM fb_size rule for large rings; fb_spread of its 8-pair groups) have no
-counterpart here: the port's fb_size rule is its own kernels' limits.
+TPU-only rules (the per-side cap of 4,096 nodes, its HBM plane budget; 64
+offset slots a side and rings of at most 256 diagonals, its tiers' VMEM;
+fb_spread of its 8-pair groups) have no counterpart here: the port's
+fb_size and fb_reach rules are its own kernels' limits.  A pair of more
+than 64 slots a side has 8-bit code fields in int64 code words, and a
+launch never mixes the two widths.
 
 Pair preparation builds the slot tables with ``slots.capped_offset_costs``,
 so the slot order is the host PredIterator order.  ``pack_pairs`` turns the
@@ -42,18 +47,20 @@ from .. import native, timings
 from .backtrack import mark_alternative_path
 from .chase_cuda import (META_FAIL_CHASE, META_FAIL_REP, META_LEN,
                          META_SCORE, N_META, chase, plan_chase, row_width)
-from .fill_cuda import (MAX_SLOTS, SMEM_BYTES, FillPlan, card_limits, fill,
+from .fill_cuda import (SMEM_BYTES, FillPlan, card_limits, code_dtype, fill,
                         plan_fill)
 from .scores_cuda import exact_s, plan_s, plan_s_prep
-from .slots import (COST_INF, EV_CAP, MAX_OFF, TIERS, capped_offset_costs,
-                    shb)
+from .slots import (COST_INF, EV_CAP, MAX_OFF, capped_offset_costs, shb,
+                    wide)
 
-MAX_R = max(r for _, r in TIERS)          # ring diagonals per pair
 LAUNCH_BYTES = 1 << 30                    # S + code planes of one launch
+NEAR_R = 256                              # nearer rings: left to the margin
 
 FALLBACK_KEYS = ("pairs_total", "pairs_device", "fb_offsets", "fb_size",
                  "fb_reach", "fb_rep", "fb_chase")
-_fallback_stats = {k: 0 for k in FALLBACK_KEYS}
+# the launches of int64 code words this process made, and their pairs
+WIDE_KEYS = ("launches_wide", "pairs_wide")
+_fallback_stats = {k: 0 for k in FALLBACK_KEYS + WIDE_KEYS}
 
 
 def fallback_stats():
@@ -77,22 +84,32 @@ class PairPrep(NamedTuple):
 
 
 @functools.lru_cache(maxsize=1 << 12)
-def launch_fits(B: int, n1: int, n2: int, dim: int) -> bool:
-    """Whether one launch of B pairs of at most n1 x n2 nodes and dim
-    states is within the port's kernels: its S and code planes (8 bytes a
-    diagonal-major position, n1 x (n1 + n2) positions a pair) within
-    LAUNCH_BYTES, and the plans of K1, K2, K3 and X1 for its
-    padded shape accepted, each within the shared memory a block may ask
-    for.  K3's is taken at one block a pair, its widest band (its rings
-    stay in shared memory only where they fit), and X1's at MAX_SLOTS
-    slots (its tables' fixed size), so neither the slots nor the reach
-    enters."""
-    if B * (n1 + n2) * n1 * 8 > LAUNCH_BYTES:
+def launch_fits(B: int, n1: int, n2: int, dim: int, opmax: int = 1,
+                Rmax: int = 4) -> bool:
+    """Whether one launch of B pairs of at most n1 x n2 nodes, dim states,
+    ``opmax`` offset slots a side and rings of ``Rmax`` diagonals (the
+    defaults: a pair of chains) is within the port's kernels: its S and
+    code planes (n1 x (n1 + n2) diagonal-major positions a pair, 4 bytes of
+    S and a code word of 4 bytes, or 8 past NARROW_OFF slots) and, past
+    NEAR_R diagonals, K3's four ring planes (Rmax x n1 float32 each)
+    within LAUNCH_BYTES, and the plans of K1, K2, K3 and X1 for its padded
+    shape accepted, each within the shared memory a block may ask for.
+    K3's is taken at one block a pair (its rings move to global memory
+    where they do not fit), X1's at the launch's own code width.
+
+    Nearer rings are left to the margin LAUNCH_BYTES keeps below the
+    card's memory: as R <= n1 + n2 they are at most twice the planes, and
+    counting them would cut the launches of runs whose reach never passed
+    256 differently (``dp_refusals.py`` prints both counts)."""
+    per_pair = (n1 + n2) * n1 * (4 + code_dtype(opmax).itemsize)
+    if Rmax > NEAR_R:
+        per_pair += 4 * 4 * Rmax * n1
+    if B * per_pair > LAUNCH_BYTES:
         return False
     n1max = -(-n1 // 8) * 8               # as pack_pairs pads it
-    if (plan_fill(B, n1max, MAX_R, blocks_per_pair=1).smem_bytes
+    if (plan_fill(B, n1max, Rmax, blocks_per_pair=1).smem_bytes
             > SMEM_BYTES
-            or plan_chase(B, MAX_SLOTS, n1max, n2).smem_bytes > SMEM_BYTES):
+            or plan_chase(B, opmax, n1max, n2).smem_bytes > SMEM_BYTES):
         return False
     try:
         plan_s_prep(B, dim, n2)
@@ -112,12 +129,17 @@ def prep_pair(idx, g1, g2, model, scores):
         return "fb_offsets"
     (o1, C1, rep1), (o2, C2, rep2) = oc1, oc2
     R = int(o1.max()) + int(o2.max()) + 2
-    if R > MAX_R:
-        return "fb_reach"
     need = max(len(o1), len(o2))
-    width = shb(min(op for op, _ in TIERS if op >= need))
+    if not launch_fits(1, g1.size, g2.size, g1.dim, need, R):
+        return ("fb_reach" if launch_fits(1, g1.size, g2.size, g1.dim, need)
+                else "fb_size")
     return PairPrep(idx, g1, g2, model, scores, o1, C1, rep1, o2, C2, rep2,
-                    R, width)
+                    R, shb(need))
+
+
+def slots_of(p) -> int:
+    """The offset slots of a pair's larger side."""
+    return max(len(p.o1), len(p.o2))
 
 
 class Batch(NamedTuple):
@@ -134,7 +156,8 @@ class Batch(NamedTuple):
     C2T: torch.Tensor     # [B, opmax, n2max] f32
     R1T: torch.Tensor     # [B, opmax, n1max] uint8
     R2T: torch.Tensor
-    iv: torch.Tensor      # [B, 8] int32: n1, n2, nl1, nl2, R, shb
+    iv: torch.Tensor      # [B, 8] int32: n1, n2, nl1, nl2, R, shb (the
+                          # code width: 8 in a launch of int64 code words)
     par: torch.Tensor     # [B, 8] f32: ge, gi, sg, si, em, eg, es
     Rmax: int
     Lm: int               # mapping capacity per pair
@@ -157,7 +180,7 @@ def pack_pairs(preps, device) -> Batch:
     # sector of device memory (K2 and K3 write them whole)
     n1max = -(-max(p.g1.size for p in preps) // 8) * 8
     n2max = max(p.g2.size for p in preps)
-    opmax = max(max(len(p.o1), len(p.o2)) for p in preps)
+    opmax = max(slots_of(p) for p in preps)
     g1T, g2T, C1T, C2T, R1T, R2T, cands = _planes(preps, dim, n1max, n2max,
                                                   opmax)
     f32 = np.float32
@@ -242,22 +265,27 @@ def run_batch(bt: Batch):
 
 
 def _launches(preps):
-    """Cut the size-sorted pairs into launches that each fit the port's
-    kernels (``launch_fits``: the padded S and code planes within
-    LAUNCH_BYTES, every kernel's plan accepted).  ``prep_pair`` lets
-    through only pairs that fit alone, so every launch holds at least
-    one."""
-    preps = sorted(preps, key=lambda p: -(p.g1.size + p.g2.size))
-    out, cur, n1max, n2max = [], [], 0, 0
+    """Cut the pairs into launches that each fit the port's kernels
+    (``launch_fits``: the padded S and code planes within LAUNCH_BYTES,
+    every kernel's plan accepted).  The pairs of int64 code words (more
+    than NARROW_OFF slots, the largest of a run) come first and share no
+    launch with the others; within each width the pairs go by size.
+    ``prep_pair`` lets through only pairs that fit alone, so every launch
+    holds at least one."""
+    preps = sorted(preps, key=lambda p: (not wide(slots_of(p)),
+                                         -(p.g1.size + p.g2.size)))
+    out, cur, n1max, n2max, opmax, Rmax = [], [], 0, 0, 0, 0
     for p in preps:
         a, b = max(n1max, p.g1.size), max(n2max, p.g2.size)
-        if cur and not launch_fits(len(cur) + 1, a, b, p.g1.dim):
+        op, r = max(opmax, slots_of(p)), max(Rmax, p.R)
+        if cur and (wide(slots_of(p)) != wide(opmax) or not launch_fits(
+                len(cur) + 1, a, b, p.g1.dim, op, r)):
             out.append(cur)
-            cur, a, b = [], p.g1.size, p.g2.size
-        assert cur or launch_fits(1, a, b, p.g1.dim), \
+            cur, a, b, op, r = [], p.g1.size, p.g2.size, slots_of(p), p.R
+        assert cur or launch_fits(1, a, b, p.g1.dim, op, r), \
             "a %d x %d pair past every launch" % (a, b)
         cur.append(p)
-        n1max, n2max = a, b
+        n1max, n2max, opmax, Rmax = a, b, op, r
     if cur:
         out.append(cur)
     return out
@@ -270,7 +298,8 @@ def align_pairs_device(items, device, mesh=None):
     (mapping1, mapping2, score, n_tr_indels) or None (host fallback).
     Under --timings: dp_prep (slot tables), dp_device (packing, copies,
     kernels, the one fetch per launch and, across processes, the gather of
-    the rows) and dp_harvest.
+    the rows) and dp_harvest; ``fallback_stats()`` also counts the
+    launches of int64 code words and their pairs (WIDE_KEYS).
 
     Over a mesh every process preps every pair; the size-sorted pairs are
     dealt round the global shards, each local shard's share is cut into
@@ -312,6 +341,9 @@ def _launch_shares(preps, mesh):
             for chunk in _launches([order[k] for k in share]):
                 bt = pack_pairs(chunk, dev)
                 launched.append((chunk, run_batch(bt), bt.Lm))
+                if wide(bt.O1.shape[1]):
+                    _fallback_stats["launches_wide"] += 1
+                    _fallback_stats["pairs_wide"] += len(chunk)
     return [(chunk, packed.cpu().numpy(), Lm)
             for chunk, packed, Lm in launched]
 

@@ -3,12 +3,14 @@
 The port's copy of what it needs from prographmsa_tpu/align/
 graph_dp_pallas.py: the finite float32 sentinels (decision codes and
 unreachable-cell values depend on their exact values; csrc/common.cuh holds
-the same bit patterns), the per-pair limits behind the ``fb_offsets`` and
-``fb_reach`` fallback rules (the code format K3 and X1 share with the JAX
-package), the decision-code field width, and the offset-slot cost tables
-in host PredIterator order.  A pair's size is bounded by the card's
-kernels and launches instead (graph_dp_cuda.launch_fits), not by a
-per-side node cap.
+the same bit patterns), the decision-code field widths K3 and X1 share with
+the JAX package up to 64 offset slots a side, and the offset-slot cost
+tables in host PredIterator order.  A pair takes up to MAX_OFF = 255 slots
+a side (``fb_offsets`` past that): past 64 its code fields are 8 bits wide
+and its launch keeps int64 code words.  Its size and reach are bounded by
+the card's kernels and launches (graph_dp_cuda.launch_fits), not by a
+per-side node cap or a ring of at most 256 diagonals: those, the JAX
+package's 64-slot cap and its tiers are its TPU's VMEM and plane budgets.
 """
 
 from __future__ import annotations
@@ -23,20 +25,25 @@ COST_INF = np.float32(1e37)      # finite "+inf" edge cost
 FLOOR = np.float32(-3e38)        # max-accumulator init (< any candidate)
 BIG = np.float32(3e38)           # min-accumulator init (> any |diff|)
 
-MAX_OFF = 64                     # offset-slot cap (largest tier's op)
-
-# tiers: (op = offset slots per side, R = ring diagonals); a pair needs the
-# smallest tier with op >= max(nlen1, nlen2); the largest R bounds the reach
-# (fb_reach), and op > 16 widens the decision-code fields to 6 bits
-TIERS = ((2, 8), (4, 16), (8, 64), (16, 128), (32, 256), (64, 256))
+MAX_OFF = 255                    # offset slots a side: 8-bit code fields
+NARROW_OFF = 64                  # the most slots an int32 code word holds
 
 EV_CAP = 8                       # repeat events per pair before host bail
 
 
-def shb(op: int) -> int:
-    """Decision-code slot-field width: 4-bit i/j fields for op <= 16, 6-bit
-    for the larger tiers."""
-    return 4 if op <= 16 else 6
+def wide(slots: int) -> bool:
+    """Whether a pair or launch whose larger side has ``slots`` offset
+    slots keeps int64 code words (8-bit slot fields); else int32."""
+    return slots > NARROW_OFF
+
+
+def shb(slots: int) -> int:
+    """Decision-code slot-field width of a pair whose larger side has
+    ``slots`` offset slots: 4 bits up to 16 and 6 up to NARROW_OFF (the JAX
+    package's layouts, an int32 word: M = i << shb | j, Y at 2 shb, X at
+    3 shb + 1, the W-state at 4 shb + 2), 8 up to MAX_OFF (the same layout
+    in an int64 word: Y at 16, X at 25, the W-state at 34)."""
+    return 4 if slots <= 16 else (8 if wide(slots) else 6)
 
 
 def offset_costs_rep(graph, scores, max_offsets: int):

@@ -67,15 +67,16 @@ def mutated(rng, s: str, n_del: int, p_sub: float = 0.1) -> str:
                    for c in chars)
 
 
-def heavy(n: int, offsets, seed: int) -> Graph:
+def heavy(n: int, offsets, seed: int, p_edge: float = 0.3) -> Graph:
     """A chain of n nodes with extra edges at the given offsets (many
-    distinct predecessor offsets per graph)."""
+    distinct predecessor offsets per graph), each node's at each offset
+    with probability ``p_edge``."""
     r = np.random.RandomState(seed)
     g = chain(random_seq(r, n - 2))
     preds = [list(p) for p in g.preds]
     for i in range(2, n - 1):
         for o in offsets:
-            if i - o >= 1 and r.rand() < 0.3:
+            if i - o >= 1 and r.rand() < p_edge:
                 preds[i].append((i - o, np.float32(0.25 * o)))
     for p in preds:
         p.sort(key=lambda t: t[0])
@@ -111,6 +112,30 @@ def fixed_repeat_pair():
 def many_offsets_graph(n: int, n_offsets: int, seed: int) -> Graph:
     """More than 16 distinct offsets: the 6-bit code-field layout."""
     return heavy(n, list(range(2, 2 + n_offsets)), seed)
+
+
+def wide_repeat_pair(unit_len: int = 70, seed: int = 0):
+    """A repeat-annotated chain of two units of ``unit_len`` residues (its
+    repeat edge skips a unit: offset unit_len + 1) against one unit, with
+    dear repeat edges (40 units) of every offset 2 .. unit_len - 1 besides,
+    so that the repeat slot the walk steps through has an index of 64 or
+    more (8-bit code fields); returns (g1, g2, model) under REPEAT_OPTS."""
+    rng = np.random.RandomState(seed)
+    unit = random_seq(rng, unit_len)
+    pre, post = random_seq(rng, 6), random_seq(rng, 6)
+    g1 = chain(pre + unit * 2 + post)
+    tr = np.full(g1.size, -1, dtype=np.int64)
+    lo = len(pre) + 1
+    tr[lo:lo + 2 * unit_len] = np.tile(np.arange(unit_len), 2)
+    g1.add_repeats([tr])
+    reps = [list(r) for r in g1.reps]
+    for o in range(2, unit_len):
+        to = int(rng.randint(o + 1, g1.size - 1))
+        reps[to].append((to - o, 40))
+    for r in reps:
+        r.sort()
+    g1.reps = reps
+    return g1, chain(pre + unit + post), model(0.3, REPEAT_OPTS)
 
 
 def items_and_expected(pairs, opts=OPTS):

@@ -38,7 +38,14 @@
 //   * the slot offsets O1/O2 sit in shared memory, and the block packs the
 //     repeat flags once into one 64-bit mask of slots per node, so a step's
 //     chain is shared-memory reads only and its flag reads (which depend on
-//     the cell alone, not on the decoded slot) leave the chain;
+//     the cell alone, not on the decoded slot) leave the chain.  A launch of
+//     more than 64 slots a side (the WIDE instantiation: int64 code words,
+//     8-bit slot fields, offset tables of 256) keeps one byte per node
+//     instead, set where any slot into the node is a repeat slot (a mask of
+//     256 bits a node would not fit beside 6,900 nodes); the byte is read
+//     where the mask was, off the chain, and only a step at such a node
+//     reads its slot's flag from R1T/R2T in global memory, behind the
+//     rare-case test;
 //   * with memory out of the way a step is bound by its own chain of
 //     dependent instructions, so the decode is written without branches
 //     (the three states' fields are selected, not branched to), a step
@@ -64,7 +71,8 @@
 
 namespace {
 
-constexpr int kMaxSlots = 64;
+constexpr int kNarrowSlots = 64;  // offset tables of an int32-code launch
+constexpr int kWideSlots = 256;   // of an int64-code launch (255 slots)
 constexpr int kMaxWarps = 8;
 constexpr int kTailLen = 4 + 1 + 4 * PGM_EV_CAP;  // meta and events
 constexpr int kLatencyWords = 4096;
@@ -146,14 +154,38 @@ __device__ __forceinline__ EndCand end_cands(
   return e;
 }
 
-// One block per pair.  Dynamic shared memory, for a window of `win` cells a
-// side: int wcode[win * win], o1s[64], o2s[64], mb1[2 * win], mb2[2 * win];
-// uint64 rm1[n1max],
-// rm2[n2max] (bit i: slot i's edge into the node is a repeat edge).
-// `stats`, if not null, receives per pair (steps, window fills, boundary
-// replays).
+// The dynamic shared memory of a block: for a window of `win` cells a side
+// Code wcode[win * win], int o1s[kSlots], o2s[kSlots], mb1[2 * win],
+// mb2[2 * win], then the repeat flags of every row and column: narrow,
+// uint64 rm1[n1max], rm2[n2max] (bit i: slot i's edge into the node is a
+// repeat edge); wide, uint8 rm1[n1max], rm2[n2max] (any slot is).
+template <bool WIDE>
+struct ChaseLayout {
+  using Code = int;
+  using Flags = unsigned long long;
+  static constexpr int kSlots = kNarrowSlots;
+};
+template <>
+struct ChaseLayout<true> {
+  using Code = long long;
+  using Flags = uint8_t;
+  static constexpr int kSlots = kWideSlots;
+};
+
+template <bool WIDE>
+__host__ __device__ inline int chase_smem_bytes(int win, int n1max,
+                                                int n2max) {
+  using L = ChaseLayout<WIDE>;
+  return (int)(sizeof(typename L::Code) * win * win +
+               4 * (2 * L::kSlots + 4 * win) +
+               sizeof(typename L::Flags) * (n1max + n2max));
+}
+
+// One block per pair.  `stats`, if not null, receives per pair (steps,
+// window fills, boundary replays).
+template <bool WIDE>
 __global__ void __launch_bounds__(32 * kMaxWarps) chase_kernel(
-    const int* __restrict__ codes, const float* __restrict__ ringM,
+    const void* __restrict__ codes_, const float* __restrict__ ringM,
     const float* __restrict__ ringX, const float* __restrict__ ringY,
     const float* __restrict__ stripeY, const float* __restrict__ stripeX,
     const int* __restrict__ O1, const int* __restrict__ O2,
@@ -162,20 +194,23 @@ __global__ void __launch_bounds__(32 * kMaxWarps) chase_kernel(
     const int* __restrict__ iv, const float* __restrict__ par, int D,
     int n1max, int n2max, int opmax, int Rmax, int Lm, int win,
     int* __restrict__ out, int* __restrict__ stats) {
-  extern __shared__ int dyn[];
+  using Code = typename ChaseLayout<WIDE>::Code;
+  using Flags = typename ChaseLayout<WIDE>::Flags;
+  constexpr int kSlots = ChaseLayout<WIDE>::kSlots;
+  extern __shared__ __align__(16) unsigned char dyn[];
   __shared__ float red_v[kMaxWarps];
   __shared__ int red_k[kMaxWarps];
   __shared__ int evs[1 + 4 * PGM_EV_CAP];
   __shared__ int fin[4];  // Wend bits, length, fail_rep, fail_chase
 
-  int* wcode = dyn;
-  int* o1s = wcode + win * win;
-  int* o2s = o1s + kMaxSlots;
-  int* mb1 = o2s + kMaxSlots;  // mapping entries since the last flush
+  Code* wcode = reinterpret_cast<Code*>(dyn);
+  int* o1s = reinterpret_cast<int*>(wcode + win * win);
+  int* o2s = o1s + kSlots;
+  int* mb1 = o2s + kSlots;  // mapping entries since the last flush
   int* mb2 = mb1 + 2 * win;
-  unsigned long long* rm1 =
-      reinterpret_cast<unsigned long long*>(mb2 + 2 * win);
-  unsigned long long* rm2 = rm1 + n1max;
+  Flags* rm1 = reinterpret_cast<Flags*>(mb2 + 2 * win);
+  Flags* rm2 = rm1 + n1max;
+  const Code* __restrict__ codes = static_cast<const Code*>(codes_);
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x, T = blockDim.x;
@@ -208,7 +243,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) chase_kernel(
   const float* c2 = C2T + (size_t)b * opmax * n2max;
   const uint8_t* r1 = R1T + (size_t)b * opmax * n1max;
   const uint8_t* r2 = R2T + (size_t)b * opmax * n2max;
-  const int* cd = codes + (size_t)b * D * n1max;
+  const Code* cd = codes + (size_t)b * D * n1max;
   const size_t roff = (size_t)b * Rmax * n1max;
   const float* rM = ringM + roff;
   const float* rY = ringY + roff;
@@ -216,26 +251,41 @@ __global__ void __launch_bounds__(32 * kMaxWarps) chase_kernel(
   const float* sY = stripeY + (size_t)b * n1max;
   const float* sX = stripeX + (size_t)b * n2max;
 
-  for (int t = tid; t < kMaxSlots; t += T) {
+  for (int t = tid; t < kSlots; t += T) {
     o1s[t] = (t < opmax) ? O1[b * opmax + t] : 1;
     o2s[t] = (t < opmax) ? O2[b * opmax + t] : 1;
   }
   for (int t = tid; t < 1 + 4 * PGM_EV_CAP; t += T) evs[t] = 0;
   for (int yy = tid; yy < p.n1; yy += T) {
-    unsigned long long m = 0;
+    Flags m = 0;
 #pragma unroll 4
-    for (int i = 0; i < p.nl1; ++i)
-      m |= (unsigned long long)(r1[(size_t)i * n1max + yy] != 0) << i;
+    for (int i = 0; i < p.nl1; ++i) {
+      const bool r = r1[(size_t)i * n1max + yy] != 0;
+      if constexpr (WIDE) m |= r; else m |= (Flags)r << i;
+    }
     rm1[yy] = m;
   }
   for (int xx = tid; xx < p.n2; xx += T) {
-    unsigned long long m = 0;
+    Flags m = 0;
 #pragma unroll 4
-    for (int j = 0; j < p.nl2; ++j)
-      m |= (unsigned long long)(r2[(size_t)j * n2max + xx] != 0) << j;
+    for (int j = 0; j < p.nl2; ++j) {
+      const bool r = r2[(size_t)j * n2max + xx] != 0;
+      if constexpr (WIDE) m |= r; else m |= (Flags)r << j;
+    }
     rm2[xx] = m;
   }
   __syncthreads();
+  // whether slot i's (j's) edge into node y (x) is a repeat edge, given
+  // the node's flags f: its bit i of the mask, or, wide, where f is set,
+  // the flag itself
+  auto rep1 = [&](Flags f, int i, int y) -> bool {
+    if constexpr (WIDE) return f != 0 && r1[(size_t)i * n1max + y] != 0;
+    else return (f >> i) & 1;
+  };
+  auto rep2 = [&](Flags f, int j, int x) -> bool {
+    if constexpr (WIDE) return f != 0 && r2[(size_t)j * n2max + x] != 0;
+    else return (f >> j) & 1;
+  };
 
   // ---- end transition: Wend = max of the valid candidates, then the first
   // candidate at minimal |Wend - c| (GraphAlign.h:304-353).  Thread tid
@@ -330,11 +380,15 @@ __global__ void __launch_bounds__(32 * kMaxWarps) chase_kernel(
       // ylo + xlo + t, so one turn's copies are contiguous in the plane
       for (int r = lane; r < rows; r += 32) {
         const int yy = ylo + r;
-        const int* src = cd + (size_t)(ylo + xlo) * n1max + yy;
+        const Code* src = cd + (size_t)(ylo + xlo) * n1max + yy;
         unsigned dst = (unsigned)__cvta_generic_to_shared(
             wcode + (yy - yb) * win + (xlo - xb) - r);
-        for (int t = 0; t < rows + cols - 1; ++t, src += n1max, dst += 4)
-          if ((unsigned)(t - r) < (unsigned)cols) cp_async4(dst, src);
+        for (int t = 0; t < rows + cols - 1;
+             ++t, src += n1max, dst += sizeof(Code))
+          if ((unsigned)(t - r) < (unsigned)cols) {
+            if constexpr (WIDE) cp_async8(dst, src);
+            else cp_async4(dst, src);
+          }
       }
       cp_async_wait_all();
       __syncwarp();
@@ -343,12 +397,12 @@ __global__ void __launch_bounds__(32 * kMaxWarps) chase_kernel(
 
     push(p.n1 - 1, p.n2 - 1);
     // y-side mark, then x-side mark, both before the push of (y, x)
-    if ((rm1[p.n1 - 1] >> i0) & 1) event(1, y, p.n1 - 1);
-    if ((rm2[p.n2 - 1] >> j0) & 1) event(2, x, p.n2 - 1);
+    if (rep1(rm1[p.n1 - 1], i0, p.n1 - 1)) event(1, y, p.n1 - 1);
+    if (rep2(rm2[p.n2 - 1], j0, p.n2 - 1)) event(2, x, p.n2 - 1);
     if ((x != 0 || y != 0) && !fail_rep)
       push((st == PGM_ST_X) ? -1 : y, (st == PGM_ST_Y) ? -1 : x);
     fill_window(y, x);
-    int code = wcode[wofs + y * win + x];
+    Code code = wcode[wofs + y * win + x];
 
     // shifts of the code word's fields: M (i, j), Y (re-entry bit, i),
     // X (re-entry bit, j), the state a re-entry goes to
@@ -360,11 +414,12 @@ __global__ void __launch_bounds__(32 * kMaxWarps) chase_kernel(
     // the entries at Lm - 1, so the loop ends without a count of its own.
     while ((y != 0 || x != 0) && !fail_rep) {
       const bool isY = st == PGM_ST_Y, isX = st == PGM_ST_X;
-      const unsigned long long f1 = rm1[y], f2 = rm2[x];
-      int i_sel = (code >> (isY ? shYi : shb)) & smask;
-      int j_sel = (code >> (isX ? shXj : 0)) & smask;
-      int rw = isY ? (code >> shYrw) & 1 : (isX ? (code >> shXrw) & 1 : 1);
-      // the offset tables are kMaxSlots long, so any decoded slot reads
+      const Flags f1 = rm1[y], f2 = rm2[x];
+      int i_sel = (int)(code >> (isY ? shYi : shb)) & smask;
+      int j_sel = (int)(code >> (isX ? shXj : 0)) & smask;
+      int rw = (int)(isY ? (code >> shYrw) & 1
+                         : (isX ? (code >> shXrw) & 1 : 1));
+      // the offset tables are kSlots long, so any decoded slot reads
       int ny = max(y - (isX ? 0 : o1s[i_sel]), 0);
       int nx = max(x - (isY ? 0 : o2s[j_sel]), 0);
       const bool boundary = isY ? x == 0 : (isX && y == 0);
@@ -408,8 +463,8 @@ __global__ void __launch_bounds__(32 * kMaxWarps) chase_kernel(
         }
         ny = max(y - (isX ? 0 : o1s[i_sel]), 0);
         nx = max(x - (isY ? 0 : o2s[j_sel]), 0);
-        if (!isX && ((f1 >> i_sel) & 1)) event(1, ny, y);
-        if (!isY && ((f2 >> j_sel) & 1)) event(2, nx, x);
+        if (!isX && rep1(f1, i_sel, y)) event(1, ny, y);
+        if (!isY && rep2(f2, j_sel, x)) event(2, nx, x);
         if (fail_rep) break;
         if (ny < yb || nx < xb) fill_window(ny, nx);
         if ((ny != 0 || nx != 0) && pos >= last) {
@@ -417,9 +472,9 @@ __global__ void __launch_bounds__(32 * kMaxWarps) chase_kernel(
           break;
         }
       }
-      const int code2 = wcode[wofs + ny * win + nx];
+      const Code code2 = wcode[wofs + ny * win + nx];
       const int nst =
-          (rw == 1) ? ((code2 >> shW) & 3) : (isY ? PGM_ST_Y : PGM_ST_X);
+          (rw == 1) ? (int)((code2 >> shW) & 3) : (isY ? PGM_ST_Y : PGM_ST_X);
       if (ny != 0 || nx != 0)
         push((nst == PGM_ST_X) ? -1 : ny, (nst == PGM_ST_Y) ? -1 : nx);
       ++it;
@@ -471,7 +526,8 @@ __global__ void latency_kernel(const int* __restrict__ perm, int n, int steps,
 
 // One block of `threads` threads per pair, a code window of `win` cells a
 // side in `smem_bytes` of dynamic shared memory (chase_cuda.plan_chase).
-extern "C" int pgm_chase(const int* codes, const float* ringM,
+// Codes are int64 (the WIDE kernel) where opmax > kNarrowSlots, else int32.
+extern "C" int pgm_chase(const void* codes, const float* ringM,
                          const float* ringX, const float* ringY,
                          const float* stripeY, const float* stripeX,
                          const int* O1, const int* O2, const float* C1T,
@@ -480,17 +536,19 @@ extern "C" int pgm_chase(const int* codes, const float* ringM,
                          int B, int D, int n1max, int n2max, int opmax,
                          int Rmax, int Lm, int threads, int win,
                          int smem_bytes, int* out, int* stats, void* stream) {
-  const int need =
-      4 * (win * win + 2 * kMaxSlots + 4 * win) + 8 * (n1max + n2max);
-  if (opmax > kMaxSlots || threads < 32 || threads > 32 * kMaxWarps ||
+  const bool wide = opmax > kNarrowSlots;
+  const int need = wide ? chase_smem_bytes<true>(win, n1max, n2max)
+                        : chase_smem_bytes<false>(win, n1max, n2max);
+  if (opmax >= kWideSlots || threads < 32 || threads > 32 * kMaxWarps ||
       threads % 32 != 0 || win < 2 || win % 2 != 0 || smem_bytes < need)
     return (int)cudaErrorInvalidValue;
+  auto kern = wide ? chase_kernel<true> : chase_kernel<false>;
   if (smem_bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        chase_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  chase_kernel<<<B, threads, smem_bytes, (cudaStream_t)stream>>>(
+  kern<<<B, threads, smem_bytes, (cudaStream_t)stream>>>(
       codes, ringM, ringX, ringY, stripeY, stripeX, O1, O2, C1T, C2T, R1T,
       R2T, iv, par, D, n1max, n2max, opmax, Rmax, Lm, win, out, stats);
   return (int)cudaGetLastError();

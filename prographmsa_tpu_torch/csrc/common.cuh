@@ -52,6 +52,14 @@ __device__ __forceinline__ void cp_async4(unsigned smem_addr,
                : "memory");
 }
 
+// The same of 8 bytes (both addresses 8-byte aligned).
+__device__ __forceinline__ void cp_async8(unsigned smem_addr,
+                                          const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(smem_addr),
+               "l"(gmem)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;" ::: "memory");
 }

@@ -54,6 +54,16 @@
 // Y at 2*SHB, X at 3*SHB+1, W-state at 4*SHB+2.  Cells outside the pair's
 // grid (x < 0 or x >= n2) hold NEG and code 0.
 //
+// Slot fields: 4 or 6 bits (up to 64 slots a side, the JAX package's
+// layouts) fit an int32 code word; a launch with more slots (up to 255) is
+// the WIDE instantiation: 8-bit fields in an int64 word (M 16 bits, Y at
+// 16, X at 25, W-state at 34), and a 64-bit reduction key, visit index in
+// the high word and code field in the low one, because a 16-bit M field
+// leaves the 32-bit key no room for the visit index.  The narrow kernels
+// are unchanged.  Rings of any R: past shared memory (3*R*band floats) the
+// global-ring path takes them, and the ring slot arithmetic holds for any
+// R > o, which R = max o1 + max o2 + 2 guarantees.
+//
 // Outputs: codes [B, D, n1max] diagonal-major; the final rings W/Y/X/M
 // [B, Rmax, n1max] (slot d % R), which are the end-region tails the chase
 // reads; stripeY [B, n1max] = Y[y, 0] and stripeX [B, n2max] = X[0, x].
@@ -70,11 +80,27 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxSlots = 64;
+constexpr int kMaxSlots = 255;     // 8-bit slot fields
+constexpr int kNarrowSlots = 64;   // the most an int32 code word holds
 constexpr int kMaxCluster = 16;  // 8 is portable, 16 needs the opt-in
-constexpr int kNoWinner = 0x7fffffff;
-constexpr int kKeyShift = 12;  // key = visit index << 12 | code field
 enum { RING_W = 0, RING_Y = 1, RING_X = 2 };
+
+// The code word and the reduction key (visit index << kShift | code field)
+// of each width.
+template <bool WIDE>
+struct Width {
+  using Code = int;
+  using Key = int;
+  static constexpr int kShift = 12;
+  static constexpr Key kNoWinner = 0x7fffffff;
+};
+template <>
+struct Width<true> {
+  using Code = long long;
+  using Key = long long;
+  static constexpr int kShift = 32;
+  static constexpr Key kNoWinner = 0x7fffffffffffffffLL;
+};
 
 struct FillArgs {
   const float* Sdiag;
@@ -87,7 +113,7 @@ struct FillArgs {
   const int* iv;
   const float* par;
   int D, n1max, n2max, opmax, Rmax, lanes_log2;
-  int* codes;
+  void* codes;  // int32, or int64 in the WIDE kernel
   float* ringW;
   float* ringY;
   float* ringX;
@@ -124,11 +150,12 @@ __global__ void fill_lists_kernel(const float* __restrict__ CT,
 }
 
 // Butterfly over the `lanes` threads of a cell: larger value, then smaller key.
+template <typename Key>
 __device__ __forceinline__ void reduce_first_max(unsigned mask, int lanes,
-                                                 float& v, int& key) {
+                                                 float& v, Key& key) {
   for (int off = lanes >> 1; off > 0; off >>= 1) {
     const float ov = __shfl_xor_sync(mask, v, off);
-    const int ok = __shfl_xor_sync(mask, key, off);
+    const Key ok = __shfl_xor_sync(mask, key, off);
     if (ov > v || (ov == v && ok < key)) {
       v = ov;
       key = ok;
@@ -161,8 +188,12 @@ __device__ __forceinline__ void pair_wait(bool cluster) {
 
 // ONE_LANE fixes one thread per cell at compile time (chains and the leaf
 // levels), which strips the lane bookkeeping from their diagonals.
-template <bool SMEM, bool ONE_LANE>
+template <bool SMEM, bool ONE_LANE, bool WIDE>
 __global__ void __launch_bounds__(1024) fill_kernel(const FillArgs a) {
+  using Code = typename Width<WIDE>::Code;
+  using Key = typename Width<WIDE>::Key;
+  constexpr int kShift = Width<WIDE>::kShift;
+  constexpr Key kNoWinner = Width<WIDE>::kNoWinner;
   extern __shared__ float dyn[];
   __shared__ const float* peer[kMaxCluster];
 
@@ -199,7 +230,7 @@ __global__ void __launch_bounds__(1024) fill_kernel(const FillArgs a) {
 
   const size_t plane = (size_t)b * a.D * n1max;
   const float* S = a.Sdiag + plane;
-  int* cd = a.codes + plane;
+  Code* cd = static_cast<Code*>(a.codes) + plane;
   const size_t roff = (size_t)b * a.Rmax * n1max;
   float* gW = a.ringW + roff;
   float* gY = a.ringY + roff;
@@ -288,7 +319,7 @@ __global__ void __launch_bounds__(1024) fill_kernel(const FillArgs a) {
   }
 
   int slot = 0;  // d % R
-  int* cdrow = cd;
+  Code* cdrow = cd;
   for (int d = 1; d <= dfull; ++d) {
     const int par = d & 1;
     slot = (slot + 1 == R) ? 0 : slot + 1;
@@ -301,7 +332,8 @@ __global__ void __launch_bounds__(1024) fill_kernel(const FillArgs a) {
 
     // stores of the thread's last cell wait until the barrier's first half
     bool have = false;
-    int st_y = 0, st_x = 0, st_code = 0;
+    int st_y = 0, st_x = 0;
+    Code st_code = 0;
     float st_M = neg, st_Y = neg, st_X = neg;
     for (int cell = cell0; cell < rows; cell += cells_per_pass) {
       const int y = y0 + cell;
@@ -323,7 +355,7 @@ __global__ void __launch_bounds__(1024) fill_kernel(const FillArgs a) {
 
       // Y: moves along g1 edges (y - o1, x) -> (y, x)
       float aY = floor_, aYB = floor_;
-      int keyY = kNoWinner;
+      Key keyY = kNoWinner;
       for (int t = l; t < n1c; t += lanes) {
         const int2 e = (t == l) ? e1f : __ldg(&e1[t * n1max + y]);
         const int i = e.x & 0xff, o = e.x >> 8;
@@ -336,18 +368,18 @@ __global__ void __launch_bounds__(1024) fill_kernel(const FillArgs a) {
         }
         const float tge = __fadd_rn(yv, ge);
         const float ca = __fsub_rn(tge, ci);
-        if (ca > aY) { aY = ca; keyY = ((2 * t) << kKeyShift) | (i << 1); }
+        if (ca > aY) { aY = ca; keyY = ((Key)(2 * t) << kShift) | (i << 1); }
         const float cb = __fsub_rn(__fadd_rn(w, gi), ci);
         if (cb > aY) {
           aY = cb;
-          keyY = ((2 * t + 1) << kKeyShift) | (i << 1) | 1;
+          keyY = ((Key)(2 * t + 1) << kShift) | (i << 1) | 1;
         }
         aYB = fmaxf(aYB, __fsub_rn(fmaxf(tge, __fadd_rn(w, sg)), ci));
       }
 
       // M: matches from (y - o1, x - o2); g1 edges outer, g2 edges inner
       float aM = floor_;
-      int keyM = kNoWinner;
+      Key keyM = kNoWinner;
       const int total = n1c * n2c;
       if (l < total) {
         int ta = 0, tb = l;
@@ -363,7 +395,7 @@ __global__ void __launch_bounds__(1024) fill_kernel(const FillArgs a) {
           const float c = __fsub_rn(
               __fsub_rn(__fadd_rn(w2, Sd), __int_as_float(ea.y)),
               __int_as_float(eb.y));
-          if (c > aM) { aM = c; keyM = (k << kKeyShift) | (i << shb) | j; }
+          if (c > aM) { aM = c; keyM = ((Key)k << kShift) | (i << shb) | j; }
           tb += lanes;
           if (tb >= n2c) {
             do { tb -= n2c; ++ta; } while (tb >= n2c);
@@ -374,7 +406,7 @@ __global__ void __launch_bounds__(1024) fill_kernel(const FillArgs a) {
 
       // X: moves along g2 edges (y, x - o2) -> (y, x)
       float aX = floor_, aXB = floor_;
-      int keyX = kNoWinner;
+      Key keyX = kNoWinner;
       for (int t = l; t < n2c; t += lanes) {
         const int2 e = (t == l) ? e2f : __ldg(&e2[t * n2max + x]);
         const int j = e.x & 0xff, p = e.x >> 8;
@@ -387,11 +419,11 @@ __global__ void __launch_bounds__(1024) fill_kernel(const FillArgs a) {
         }
         const float tge = __fadd_rn(xv, ge);
         const float ca = __fsub_rn(tge, cj);
-        if (ca > aX) { aX = ca; keyX = ((2 * t) << kKeyShift) | (j << 1); }
+        if (ca > aX) { aX = ca; keyX = ((Key)(2 * t) << kShift) | (j << 1); }
         const float cb = __fsub_rn(__fadd_rn(wv, gi), cj);
         if (cb > aX) {
           aX = cb;
-          keyX = ((2 * t + 1) << kKeyShift) | (j << 1) | 1;
+          keyX = ((Key)(2 * t + 1) << kShift) | (j << 1) | 1;
         }
         aXB = fmaxf(aXB, __fsub_rn(fmaxf(tge, __fadd_rn(wv, sg)), cj));
       }
@@ -404,10 +436,10 @@ __global__ void __launch_bounds__(1024) fill_kernel(const FillArgs a) {
         aXB = reduce_fmax(gmask, lanes, aXB);
       }
       if (l != 0) continue;
-      const int fmask = (1 << kKeyShift) - 1;
-      const int cY = (keyY == kNoWinner) ? 0 : (keyY & fmask);
-      const int cM = (keyM == kNoWinner) ? 0 : (keyM & fmask);
-      const int cX = (keyX == kNoWinner) ? 0 : (keyX & fmask);
+      const Key fmask = ((Key)1 << kShift) - 1;
+      const Code cY = (keyY == kNoWinner) ? 0 : (Code)(keyY & fmask);
+      const Code cM = (keyM == kNoWinner) ? 0 : (Code)(keyM & fmask);
+      const Code cX = (keyX == kNoWinner) ? 0 : (Code)(keyX & fmask);
 
       const bool ylive = (y >= 1) && (y <= n1 - 2);
       const bool xlive = (x >= 1) && (x <= n2 - 2);
@@ -423,10 +455,10 @@ __global__ void __launch_bounds__(1024) fill_kernel(const FillArgs a) {
       Xr = pgm_clamp_neg(Xr);
       Yr = pgm_clamp_neg(Yr);
       Wr = pgm_clamp_neg(Wr);
-      const int wst =
+      const Code wst =
           (Wr == Mr) ? PGM_ST_M : ((Wr == Yr) ? PGM_ST_Y : PGM_ST_X);
-      const int code = cM | (cY << (2 * shb)) | (cX << (3 * shb + 1)) |
-                       (wst << (4 * shb + 2));
+      const Code code = cM | (cY << (2 * shb)) | (cX << (3 * shb + 1)) |
+                        (wst << (4 * shb + 2));
 
       // what the next diagonals read goes out first
       if (SMEM) {
@@ -504,18 +536,21 @@ static cudaError_t fill_config(void (*kern)(const FillArgs), int B,
 // blocks of `threads` threads, `1 << lanes_log2` threads per cell, the W/Y/X
 // rings in shared memory iff `smem_rings` (`smem_bytes` of dynamic shared
 // memory per block, as fill_cuda.plan_fill computes it).
+// Codes are int64 (the WIDE kernel) where opmax > kNarrowSlots, else int32.
 extern "C" int pgm_fill(const float* Sdiag, const int* O1, const int* O2,
                         const float* C1T, const float* C2T, const int* iv,
                         const float* par, int B, int D, int n1max, int n2max,
                         int opmax, int Rmax, int blocks_per_pair,
                         int lanes_log2, int threads, int smem_rings,
                         int smem_bytes, int2* E1, int2* E2, int* cnt1,
-                        int* cnt2, int* codes, float* ringW, float* ringY,
+                        int* cnt2, void* codes, float* ringW, float* ringY,
                         float* ringX, float* ringM, float* stripeY,
                         float* stripeX, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (opmax > kMaxSlots || blocks_per_pair > kMaxCluster || threads < 128)
+  if (opmax > kMaxSlots || Rmax >= (1 << 23) ||
+      blocks_per_pair > kMaxCluster || threads < 128)
     return (int)cudaErrorInvalidValue;
+  const bool wide = opmax > kNarrowSlots;
   const dim3 lb(128);
   fill_lists_kernel<<<dim3((n1max + 127) / 128, B), lb, 0, st>>>(
       C1T, O1, iv, 0, n1max, opmax, E1, cnt1);
@@ -532,11 +567,13 @@ extern "C" int pgm_fill(const float* Sdiag, const int* O1, const int* O2,
   a.codes = codes; a.ringW = ringW; a.ringY = ringY; a.ringX = ringX;
   a.ringM = ringM; a.stripeY = stripeY; a.stripeX = stripeX;
 
+  void (*const kerns[8])(const FillArgs) = {
+      fill_kernel<false, false, false>, fill_kernel<false, true, false>,
+      fill_kernel<true, false, false>,  fill_kernel<true, true, false>,
+      fill_kernel<false, false, true>,  fill_kernel<false, true, true>,
+      fill_kernel<true, false, true>,   fill_kernel<true, true, true>};
   void (*kern)(const FillArgs) =
-      smem_rings ? (lanes_log2 ? fill_kernel<true, false>
-                               : fill_kernel<true, true>)
-                 : (lanes_log2 ? fill_kernel<false, false>
-                               : fill_kernel<false, true>);
+      kerns[4 * wide + 2 * (smem_rings != 0) + (lanes_log2 == 0)];
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   e = fill_config(kern, B, blocks_per_pair, threads, smem_bytes, st, &cfg,
@@ -554,7 +591,7 @@ extern "C" int pgm_fill(const float* Sdiag, const int* O1, const int* O2,
 extern "C" int pgm_fill_max_clusters(int blocks_per_pair, int threads,
                                      int smem_bytes, int* clusters) {
   if (blocks_per_pair > kMaxCluster) return (int)cudaErrorInvalidValue;
-  void (*kern)(const FillArgs) = fill_kernel<true, false>;
+  void (*kern)(const FillArgs) = fill_kernel<true, false, false>;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   cudaError_t e = fill_config(kern, 1, blocks_per_pair, threads, smem_bytes,

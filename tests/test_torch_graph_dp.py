@@ -24,9 +24,10 @@ from prographmsa_tpu_torch.align.chase_cuda import (
     MAX_WARPS, MAX_WINDOW, META_FAIL_CHASE, META_FAIL_REP, META_LEN, N_META,
     N_STATS, chase, chase_torch, plan_chase, row_width)
 from prographmsa_tpu_torch.align.fill_cuda import (
-    LANE_THREADS, MAX_BLOCKS_PER_PAIR, MAX_SLOTS, MAX_THREADS, SMEM_BYTES, SMS,
+    LANE_THREADS, MAX_BLOCKS_PER_PAIR, MAX_THREADS, SMEM_BYTES, SMS,
     WIDE_BLOCKS_PER_PAIR, card_limits, fill, fill_torch, plan_fill)
-from prographmsa_tpu_torch.align.slots import BIG, EV_CAP, FLOOR
+from prographmsa_tpu_torch.align.slots import (BIG, EV_CAP, FLOOR, MAX_OFF,
+                                               NARROW_OFF)
 from prographmsa_tpu_torch.align.scores_cuda import exact_s
 
 
@@ -171,31 +172,46 @@ def _chain_of(n, rng):
 
 
 def test_fallback_reasons_match_reference():
-    """Pairs the batch refuses: the same reason as the reference's prep
-    (a pair past every launch, too many offsets, too long a reach).  The
-    reference refuses a side over its cap of 4,096 nodes (MAX_N, its TPU
-    plane budget); the port takes such a pair where its kernels hold it
-    (launch_fits), and the plain twins' mapping, score and n_tr_indels
-    equal the host's."""
+    """Pairs the batch refuses, and why, beside the reference's prep: a
+    pair past every launch (the same reason), 256 offset slots on a side
+    (the same), rings whose planes overflow the launch (the port's
+    fb_reach; the reference's cap of 4,096 nodes a side calls it fb_size).
+    The reference also refuses more than 64 slots a side and rings past
+    256 diagonals (its TPU's tiers) and a side over 4,096 nodes (MAX_N,
+    its TPU plane budget); the port takes such pairs where its kernels
+    hold them (launch_fits), and the plain twins' mapping, score and
+    n_tr_indels equal the host's."""
     rng = np.random.RandomState(3)
     m = checks.model(0.3)
     small = _chain_of(20, rng)
     side = 8200           # (2 * 8200) * 8200 * 8 bytes > LAUNCH_BYTES
+    # the port's reason: (pair, the reference's reason); an 8,000-row pair
+    # with a skip of 5,000: its planes fit, its four ring planes of 5,003
+    # diagonals do not
     cases = {
-        "fb_size": (_chain_of(side, rng), _chain_of(side, rng)),
-        "fb_offsets": (checks.many_offsets_graph(80, 70, 1), small),
-        "fb_reach": (checks.heavy(270, [250], 2), checks.heavy(270, [250],
-                                                               3)),
+        "fb_size": ((_chain_of(side, rng), _chain_of(side, rng)),
+                    "fb_size"),
+        "fb_offsets": ((checks.many_offsets_graph(300, 255, 1), small),
+                       "fb_offsets"),
+        "fb_reach": ((checks.heavy(8000, [5000], 4), small), "fb_size"),
     }
-    for reason, (g1, g2) in cases.items():
+    for reason, ((g1, g2), ref_reason) in cases.items():
         sc = checks.DynProgScores(g1, g2, m, checks.OPTS)
-        assert ref_gdp._prep_pair(0, g1, g2, m, sc) == reason
+        assert ref_gdp._prep_pair(0, g1, g2, m, sc) == ref_reason
         assert gdp.prep_pair(0, g1, g2, m, sc) == reason
         before = gdp.fallback_stats()
         assert gdp.align_pairs_device([(g1, g2, m, sc)], "cpu") == [None]
         after = gdp.fallback_stats()
         assert after[reason] == before[reason] + 1
         assert after["pairs_device"] == before["pairs_device"]
+    # past the reference's tiers: 71 slots on a side, a reach of 502
+    for ref_reason, pair in (
+            ("fb_offsets", (checks.many_offsets_graph(80, 70, 1), small, m)),
+            ("fb_reach", (checks.heavy(270, [250], 2),
+                          checks.heavy(270, [250], 3), m))):
+        items, _ = checks.items_and_expected([pair])
+        assert ref_gdp._prep_pair(0, *items[0]) == ref_reason
+        _assert_batch([pair])
     # one side past the reference's cap: rows of a chain of 3 nodes, so
     # the plain fill's diagonals stay short, and edges of offset 64 that
     # the walk takes, so the plain chase's steps do too
@@ -214,7 +230,10 @@ class _Side:
 
 
 def _sized(sizes):
-    return [gdp.PairPrep(k, _Side(a), _Side(b), *([None] * 10))
+    """Preps of pairs of chains (one slot a side, rings of 4 diagonals)."""
+    one = np.ones(1, np.int32)
+    return [gdp.PairPrep(k, _Side(a), _Side(b), None, None, one, None, None,
+                         one, None, None, 4, 4)
             for k, (a, b) in enumerate(sizes)]
 
 
@@ -241,7 +260,7 @@ def test_launch_fits_follows_the_kernels_plans(shape, fits, why):
     assert gdp.launch_fits(B, n1, n2, dim) is fits
     n1max = -(-n1 // 8) * 8
     if why.startswith("X1"):
-        assert (plan_chase(B, MAX_SLOTS, n1max, n2).smem_bytes
+        assert (plan_chase(B, NARROW_OFF, n1max, n2).smem_bytes
                 <= SMEM_BYTES) is fits
     assert (B * (n1 + n2) * n1 * 8 <= gdp.LAUNCH_BYTES) is (
         fits or not why.startswith("planes"))
@@ -517,7 +536,7 @@ def test_plan_chase_layout(name, shape, threads, win):
     assert plan.threads % 32 == 0 and 32 <= plan.threads <= 32 * MAX_WARPS
     # the window, both offset tables, the mapping entries of one window's
     # steps and a 64-bit repeat mask per node
-    assert plan.smem_bytes == (4 * (win * win + 2 * MAX_SLOTS + 4 * win)
+    assert plan.smem_bytes == (4 * (win * win + 2 * NARROW_OFF + 4 * win)
                                + 8 * (n1max + n2max))
     assert plan.smem_bytes <= SMEM_BYTES
     Lm = n1max + n2max + 8
@@ -527,7 +546,7 @@ def test_plan_chase_layout(name, shape, threads, win):
 
 
 def test_plan_chase_refuses_what_the_kernel_does_not_take():
-    for bad in (dict(opmax=65), dict(win=0), dict(win=7),
+    for bad in (dict(opmax=MAX_OFF + 1), dict(win=0), dict(win=7),
                 dict(win=MAX_WINDOW + 2), dict(threads=48),
                 dict(threads=512)):
         kw = dict(B=1, opmax=4, n1max=100, n2max=90)

@@ -219,10 +219,14 @@ def test_offset_costs_rep(pair):
     for name in ("NEG", "COST_INF", "FLOOR", "BIG"):
         assert getattr(slots, name).tobytes() == \
             getattr(ref_gdp, name).tobytes(), name
-    assert (slots.MAX_OFF, slots.TIERS, slots.EV_CAP) == \
-        (ref_gdp.MAX_OFF, ref_gdp.TIERS, ref_gdp.EV_CAP)
-    assert [slots.shb(op) for op, _ in slots.TIERS] == \
+    # the reference's code layouts up to its 64 slots a side (its TPU's
+    # tiers), 8-bit fields past them up to the port's 255
+    assert slots.EV_CAP == ref_gdp.EV_CAP
+    assert slots.NARROW_OFF == ref_gdp.MAX_OFF < slots.MAX_OFF == 255
+    assert [slots.shb(op) for op, _ in ref_gdp.TIERS] == \
         [ref_gdp._shb(op) for op, _ in ref_gdp.TIERS]
+    assert [slots.shb(k) for k in (1, 16, 17, 64, 65, 255)] == \
+        [4, 4, 6, 6, 8, 8]
     assert (slots.STATE_M, slots.STATE_X, slots.STATE_Y) == \
         (ref_bt.STATE_M, ref_bt.STATE_X, ref_bt.STATE_Y)
 
